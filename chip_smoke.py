@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result):
 
-1. build — compile ``rankaae_tpu_torch/csrc/kendall.cu`` with nvcc;
+1. build — compile ``rankaae_tpu_torch/csrc/kendall.cu`` and
+   ``csrc/fused_block.cu`` with nvcc, one process per source, in parallel;
 2. kernels — hold the Kendall kernels K1 (pair sums) and K2 (gradient rows)
    against their plain PyTorch versions on the card, over the batch sizes
    the main path gives them, T in {1, 8} stacked trials, activation off and
@@ -25,7 +26,10 @@ last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
 1e-7), counts exact, styles gradient atol 1e-6 (sums taken in another
 order); phase 4 atol 1e-4 on the six losses (as the CPU parity test
 against the JAX package), and per leaf of the weights after the batch a max
-difference of 1e-3 and a relative norm of 1e-3 (see ``LEAF_ATOL``).
+difference of 1e-3 and a relative norm of 1e-3 (see ``LEAF_ATOL``); phase 5
+max |kernel - plain| <= 1e-5 * max |plain| (the same float32 operations,
+summed in another order); phase 6 ``reconstruct`` vs ``decode(encode)``
+atol 1e-5 and card vs CPU atol 1e-4 on styles and reconstructions.
 """
 from __future__ import annotations
 
@@ -54,6 +58,8 @@ LOSS_RTOL, LOSS_ATOL, GRAD_ATOL, PARITY_ATOL = 1e-5, 1e-7, 1e-6, 1e-4
 # changes them by 1e-3..1e-2 at lr 1e-2).
 LEAF_ATOL, LEAF_RTOL = 1e-3, 1e-3
 EPOCHS = 3
+K3_RTOL, RECON_ATOL, SERVE_ATOL = 1e-5, 1e-5, 1e-4
+BENCH_B, BENCH_ITERS = 4096, 50
 
 
 def card_line() -> str:
@@ -117,6 +123,157 @@ def bound(name, t, b, k):
     ops = OPS_PER_PAIR[name] * t * b * b * k
     t_bytes, t_ops = moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k3_bound(b, c, fb):
+    """Least time (ms) of one K3 call, and what bounds it: x read once and
+    out written once (plus the block's weights), and per sample two
+    C x C x 11-tap convs (2 operations a tap) and ~(15 + 4E) elementwise
+    operations per (channel, position) (two BNs, biases, three PReLUs, the
+    excitation's two layers, the final adds)."""
+    f32 = 4
+    weights = 2 * c * c * fb.K + 10 * c + 2 * fb.E * fb.L + fb.L + fb.E
+    moved = (2 * b * c * fb.L + weights) * f32
+    ops = b * (2 * 2 * c * c * fb.K * fb.L + (15 + 4 * fb.E) * c * fb.L)
+    t_bytes, t_ops = moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k3_inputs(torch, np, fb, b, c, seed):
+    """The probe's ``make_inputs`` (normal * 0.3, variances |.| + 0.5, PReLU
+    slopes 0.01) in the wrapper's argument order and the port's layouts."""
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape):
+        return torch.tensor(rng.normal(size=shape).astype(np.float32) * 0.3, device="cuda")
+
+    def slope():
+        return torch.full((c,), 0.01, device="cuda")
+
+    x = f32(b, c, fb.L)
+    args = (f32(c), f32(c).abs() + 0.5, f32(c, c, fb.K), f32(c), slope(),
+            f32(c), f32(c).abs() + 0.5, f32(c, c, fb.K), f32(c), slope(),
+            f32(fb.E, fb.L), f32(fb.E), slope(), f32(fb.L, fb.E), f32(fb.L), slope())
+    return x, args
+
+
+def check_k3(torch, np, fb):
+    """Phase 5: K3 against its plain version over batch sizes and channel
+    counts; returns the max error at the serving shape (C 4, B 1024)."""
+    err_main = None
+    for c in (4, 2):
+        for b in (1, 77, 1024, 4096):
+            x, args = k3_inputs(torch, np, fb, b, c, 100 * c + b)
+            y = fb.fused_block(x, *args)
+            y_plain = fb.fused_block_plain(x, *args)
+            err = (y - y_plain).abs().max().item()
+            scale = y_plain.abs().max().item()
+            assert err <= K3_RTOL * scale, (c, b, err, scale)
+            if (c, b) == (4, 1024):
+                err_main = err
+    torch.cuda.synchronize()
+    print(f"K3: 8 cases agree with the plain version (C in (4, 2), B in (1, 77, 1024, "
+          f"4096), max |kernel - plain| <= {K3_RTOL} * max |plain|); error at C 4, "
+          f"B 1024: {err_main:.3g}")
+    times = {}
+    for c, b in ((4, 1024), (4, 4096), (2, 1024)):
+        x, args = k3_inputs(torch, np, fb, b, c, 7)
+        kernel = lambda: fb.fused_block(x, *args)          # noqa: E731
+        plain = lambda: fb.fused_block_plain(x, *args)     # noqa: E731
+        p1, k1, k2, p2 = (time_ms(torch, f) for f in (plain, kernel, kernel, plain))
+        b_ms, b_by = k3_bound(b, c, fb)
+        times[(c, b)] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                         "device_ms": graph_ms(torch, kernel), "bound_ms": b_ms, "bound_by": b_by}
+        print(f"K3 time C={c} B={b}: " + json.dumps(times[(c, b)]))
+    return err_main, times
+
+
+def seeded_models(torch, cfg, seed, device):
+    """The autoencoder and discriminator of ``cfg``, torch-default
+    initialised from ``seed``, on ``device``."""
+    from rankaae_tpu_torch.models.primitives import reset_parameters
+    from rankaae_tpu_torch.models.registry import build_autoencoder, build_discriminator
+
+    encoder, decoder = build_autoencoder(cfg)
+    models = {"enc": encoder, "dec": decoder, "dis": build_discriminator(cfg)}
+    gen = torch.Generator().manual_seed(seed)
+    for m in models.values():
+        reset_parameters(m, gen)
+        m.to(device)
+    return models
+
+
+def serve_normal(torch, np, fb, cfg_path, tmp, card):
+    """Phase 6: the serving path of the conv forms; returns the K3 launches
+    of the CLI run."""
+    from rankaae_tpu_torch import serve
+    from rankaae_tpu_torch.data.dataset import read_csv
+    from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes_csv
+    from rankaae_tpu_torch.models.inference import InferenceModel
+    from rankaae_tpu_torch.models.primitives import set_matmul_precision
+    from rankaae_tpu_torch.utils.checkpoint import save_model_bundle
+    from rankaae_tpu_torch.utils.config import TrainConfig
+    from rankaae_tpu_torch.utils.weights import to_jax
+
+    cfg = TrainConfig.from_yaml(cfg_path).replace(ae_form="normal", dropout_rate=0.0,
+                                                  dis_dropout_rate=0.0)
+    set_matmul_precision(cfg.matmul_precision)
+    csv = make_synthetic_xanes_csv(os.path.join(tmp, "serve_7000.csv"), n_rows=7000,
+                                   dim=cfg.dim_in, seed=0)
+    spec = read_csv(csv)[1][:, cfg.n_aux:]
+    models = seeded_models(torch, cfg, 1, "cuda")
+    x_all = torch.tensor(spec, device="cuda")
+    with torch.no_grad():             # BN running statistics: train-mode forwards only
+        for m in models.values():
+            m.train()
+        for _ in range(3):
+            for i in range(0, x_all.shape[0], 1024):
+                models["dec"](models["enc"](x_all[i:i + 1024]))
+    bundle = save_model_bundle(os.path.join(tmp, "normal.mpk"), *to_jax(models), cfg)
+    out = os.path.join(tmp, "served")
+
+    fb.launches = 0
+    t0 = time.perf_counter()
+    serve.main([bundle, csv, out, "--batch-size", "1024"])
+    cli_s = time.perf_counter() - t0
+    launches = fb.launches
+    styles = np.loadtxt(out + "_styles.txt")
+    recon = np.loadtxt(out + "_recon.txt")
+    assert styles.shape == (7000, cfg.nstyle) and recon.shape == (7000, 256), \
+        (styles.shape, recon.shape)
+    assert np.all(np.isfinite(styles)) and np.all(np.isfinite(recon))
+    assert launches == 7 * 4, launches     # 7 decode chunks x eblock0, 1, 3, 4
+    print(f"serve CLI: normal form, 7000 spectra, batch 1024: {cli_s:.3f} s wall (CSV "
+          f"parse, bundle load and text output included); K3 launches {launches} "
+          f"(expected 28) [{card}]")
+
+    model = InferenceModel.from_bundle(bundle)
+    x = spec[:1024]
+    y = model.reconstruct(x)
+    fused_err = np.abs(y - model.decode(model.encode(x))).max()
+    assert fused_err <= RECON_ATOL, fused_err
+    cpu = InferenceModel.from_bundle(bundle, device="cpu")
+    z_err = np.abs(model.encode(x) - cpu.encode(x)).max()
+    y_err = np.abs(y - cpu.reconstruct(x)).max()
+    assert z_err <= SERVE_ATOL and y_err <= SERVE_ATOL, (z_err, y_err)
+    assert np.abs(styles[:1024] - cpu.encode(x)).max() <= SERVE_ATOL
+    print(f"serve: reconstruct vs decode(encode) {fused_err:.3g}; card vs CPU on 1024 "
+          f"rows: styles {z_err:.3g}, reconstructions {y_err:.3g} (atol {SERVE_ATOL})")
+
+    for form, per_round in (("normal", 4), ("compact", 1)):
+        if form == "normal":
+            bench_model = model
+        else:
+            ccfg = cfg.replace(ae_form="compact")
+            bench_model = InferenceModel(*to_jax(seeded_models(torch, ccfg, 2, "cpu")), ccfg)
+        fb.launches = 0
+        res = serve.device_benchmark(bench_model, batch_size=BENCH_B, iters=BENCH_ITERS)
+        assert fb.launches == per_round * (BENCH_ITERS + 1), (form, fb.launches)
+        res["k3_launches"] = fb.launches
+        print(f"serve bench ({form}): {json.dumps(res)} [{card}]")
+    res = serve.host_benchmark(model, batch_size=BENCH_B, n_batches=16)
+    print(f"serve host bench (normal): {json.dumps(res)} [{card}]")
+    return launches
 
 
 def check_kernels(torch, np, kc, tk, batch_sizes):
@@ -254,6 +411,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from rankaae_tpu_torch.data.dataset import split_sizes
     from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes_csv
+    from rankaae_tpu_torch.models.primitives import set_matmul_precision
+    from rankaae_tpu_torch.ops import _nvcc
+    from rankaae_tpu_torch.ops import fused_block_cuda as fb
     from rankaae_tpu_torch.ops import kendall as tk
     from rankaae_tpu_torch.ops import kendall_cuda as kc
     from rankaae_tpu_torch.train.facade import Trainer
@@ -264,12 +424,16 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---- 1. build ----------------------------------------------------- #
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
+    _nvcc.compile_all([kc.SOURCE, fb.SOURCE])
     kc.build()
-    print(f"build: {kc.SOURCE.name} in {time.perf_counter() - t0:.2f} s")
-    for line in kc.build_log.splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    fb.build()
+    print(f"build: {kc.SOURCE.name}, {fb.SOURCE.name} in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for source in (kc.SOURCE, fb.SOURCE):     # kept beside the library, built or cached
+        for line in _nvcc.build_log(source).splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"  ptxas {source.name}: {line.strip()}")
 
     # ---- 2. kernels against their plain versions ----------------------- #
     cfg_path = os.path.join(HERE, "example", "fix_config.yaml")
@@ -313,6 +477,16 @@ def main() -> int:
 
     # ---- 4. card vs CPU on one batch ----------------------------------- #
     batch_parity(torch, np, cfg_path)
+    print(f"phases 1-4: {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 5. K3 against its plain version ------------------------------- #
+    set_matmul_precision("highest")       # TF32 off for the plain version's convs
+    k3_err, k3_times = check_k3(torch, np, fb)
+
+    # ---- 6. serving the conv forms -------------------------------------- #
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        k3_launches = serve_normal(torch, np, fb, cfg_path, tmp, card)
+    print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s")
 
     rows = []
     for name, line in (("kendall_pair_sums", 49), ("kendall_grad_rows", 91)):
@@ -326,8 +500,18 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "device_ms": times[name]["device_ms"],
         })
+    k3 = k3_times[(4, 1024)]
+    rows.append({
+        "name": "fused_block", "route": "cuda",
+        "source": "rankaae_tpu_torch/csrc/fused_block.cu",
+        "replaces": "scripts/fused_block_probe.py:50",
+        "launches": k3_launches, "max_abs_err": k3_err,
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": None, "device_ms": k3["device_ms"],
+    })
     print("library_ms: null — no single PyTorch call computes the Kendall pair sums "
-          "or their gradient rows")
+          "or their gradient rows, nor the fused EncodingBlock (two convs, BNs, PReLUs, "
+          "residual and excitation MLP); K3's row is at the serving shape C 4, B 1024")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -46,6 +46,12 @@ class SplitArrays:
         return self.spec.shape[0]
 
 
+def read_csv(csv_fn: str, dtype=np.float32):
+    """CSV -> (column names, float payload, 2-level row index)."""
+    full_df = pd.read_csv(csv_fn, index_col=[0, 1], comment="#")
+    return full_df.columns.to_list(), full_df.to_numpy().astype(dtype), full_df.index.to_list()
+
+
 def load_split_arrays(
     csv_fn: str,
     ratios: Tuple[float, float, float] = (0.7, 0.15, 0.15),
@@ -53,10 +59,7 @@ def load_split_arrays(
     dtype=np.float32,
 ) -> Dict[str, SplitArrays]:
     """Load the CSV once and return all three contiguous splits."""
-    full_df = pd.read_csv(csv_fn, index_col=[0, 1], comment="#")
-    cols = full_df.columns.to_list()
-    data = full_df.to_numpy().astype(dtype)
-    index = full_df.index.to_list()
+    cols, data, index = read_csv(csv_fn, dtype)
     grid = np.array([float(c[len("ENE_"):]) for c in cols if c.startswith("ENE_")])
 
     # Column-layout checks, as in the reference (dataloader.py:21-25).

@@ -1,0 +1,152 @@
+"""Residual conv blocks of the "normal"/"compact" forms (counterpart of
+``rankaae_tpu/models/blocks.py:24-136``; reference
+``sc/clustering/model.py:24-174``).
+
+Each block sums three branches — a 2-conv main path, a strided/grouped
+shortcut, and a squeeze-excitation-like MLP over the length axis — with
+per-channel PReLU (init 0.01) and affine-free BatchNorm throughout.
+Submodule names are the flax module's, so the weight bridge maps them one to
+one.
+
+In eval mode, an :class:`EncodingBlock` of K3's shape (stride 1, c_in ==
+c_out in (2, 4), length 256, 11 taps, excitation 2: the decoders' tail) runs
+as one call of ``ops/fused_block_cuda.fused_block``, which launches the K3
+kernel on a CUDA tensor.  Every other block, and every block in train mode,
+runs its modules one by one.
+"""
+from __future__ import annotations
+
+import math
+
+from torch import nn
+
+from rankaae_tpu_torch.models.primitives import (
+    BatchNorm,
+    Conv1d,
+    ConvTranspose1d,
+    Dropout,
+    Linear,
+    PReLU,
+)
+from rankaae_tpu_torch.ops import fused_block_cuda
+
+
+class EncodingBlock(nn.Module):
+    """Downsampling residual block (reference ``model.py:24-100``).
+
+    Input (B, in_channels, in_len) -> (B, out_channels, out_len).
+    Main: [BN] -> Conv(k, stride=in_len//(out_len*stride), replicate pad) -> PReLU
+          -> BN -> Conv(k, stride, zero pad) -> PReLU.
+    Shortcut (when shape changes): grouped Conv(k=s=in_len//out_len) -> PReLU.
+    Excitation: [Dropout] -> Linear(in_len->excitation) -> PReLU
+          -> Linear(excitation->out_len) -> PReLU [-> BN -> 1x1 grouped Conv -> PReLU].
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, in_len: int, out_len: int,
+                 kernel_size: int = 7, stride: int = 2, excitation: int = 4,
+                 dropout_rate: float = 0.2):
+        super().__init__()
+        c_in, c_out, k = in_channels, out_channels, kernel_size
+        self.has_bn1 = c_in > 1
+        self.has_short = stride > 1 or c_in != c_out
+        self.has_dropout = in_len > 10
+        self.has_excit_conv = c_in != c_out
+        self.fused = (stride == 1 and c_in == c_out and c_in in fused_block_cuda.CHANNELS
+                      and in_len == out_len == fused_block_cuda.L
+                      and k == fused_block_cuda.K and excitation == fused_block_cuda.E)
+        if self.has_bn1:
+            self.bn1 = BatchNorm(c_in)
+        self.conv1 = Conv1d(c_in, c_out, k, stride=in_len // (out_len * stride),
+                            padding=(k - 1) // 2, padding_mode="replicate")
+        self.relu1 = PReLU(c_out)
+        self.bn2 = BatchNorm(c_out)
+        self.conv2 = Conv1d(c_out, c_out, k, stride=stride, padding=(k - 1) // 2)
+        self.relu2 = PReLU(c_out)
+        if self.has_short:
+            self.conv_short = Conv1d(c_in, c_out, in_len // out_len, stride=in_len // out_len,
+                                     groups=math.gcd(c_in, c_out))
+            self.relu_short = PReLU(c_out)
+        if self.has_dropout:
+            self.dropout_1 = Dropout(dropout_rate)
+        self.fc1 = Linear(in_len, excitation)
+        self.relu_excit_1 = PReLU(c_in)
+        self.fc2 = Linear(excitation, out_len)
+        self.relu_excit_2 = PReLU(c_in)
+        if self.has_excit_conv:
+            self.bn_excit = BatchNorm(c_in)
+            self.conv_excit = Conv1d(c_in, c_out, 1, groups=math.gcd(c_in, c_out))
+            self.relu_excit_3 = PReLU(c_out)
+
+    def forward(self, x, sampler=None):
+        if self.fused and not self.training:
+            return fused_block_cuda.fused_block(
+                x.contiguous(), self.bn1.running_mean, self.bn1.running_var,
+                self.conv1.weight, self.conv1.bias, self.relu1.weight,
+                self.bn2.running_mean, self.bn2.running_var,
+                self.conv2.weight, self.conv2.bias, self.relu2.weight,
+                self.fc1.weight, self.fc1.bias, self.relu_excit_1.weight,
+                self.fc2.weight, self.fc2.bias, self.relu_excit_2.weight)
+        out = self.bn1(x) if self.has_bn1 else x
+        residual = out
+        out = self.relu1(self.conv1(out))
+        out = self.relu2(self.conv2(self.bn2(out)))
+        res = self.relu_short(self.conv_short(residual)) if self.has_short else residual
+        excit = self.dropout_1(residual, sampler) if self.has_dropout else residual
+        return out + res + _excitation(self, excit)
+
+
+class DecodingBlock(nn.Module):
+    """Upsampling residual block (reference ``model.py:103-174``).
+
+    Mirror of :class:`EncodingBlock` built on transposed convs, all with
+    kernel == stride.  Default ``out_len = 4 * in_len``.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, in_len: int,
+                 excitation: int = 4, dropout_rate: float = 0.2, out_len: int = -1):
+        super().__init__()
+        c_in, c_out = in_channels, out_channels
+        out_len = out_len if out_len > 0 else in_len * 4
+        self.has_bn1 = in_len > 1
+        self.has_dropout = in_len > 10
+        self.has_excit_conv = c_in != c_out
+        if self.has_bn1:
+            self.bn1 = BatchNorm(c_in)
+        self.conv1 = ConvTranspose1d(c_in, c_out, kernel_size=2, stride=2)
+        self.relu1 = PReLU(c_out)
+        self.bn2 = BatchNorm(c_out)
+        s2 = out_len // (in_len * 2)
+        self.conv2 = ConvTranspose1d(c_out, c_out, kernel_size=s2, stride=s2)
+        self.relu2 = PReLU(c_out)
+        ss = out_len // in_len
+        self.conv_short = ConvTranspose1d(c_in, c_out, kernel_size=ss, stride=ss,
+                                          groups=math.gcd(c_in, c_out))
+        self.relu_short = PReLU(c_out)
+        if self.has_dropout:
+            self.dropout_1 = Dropout(dropout_rate)
+        self.fc1 = Linear(in_len, excitation)
+        self.relu_excit_1 = PReLU(c_in)
+        self.fc2 = Linear(excitation, out_len)
+        self.relu_excit_2 = PReLU(c_in)
+        if self.has_excit_conv:
+            self.bn_excit = BatchNorm(c_in)
+            self.conv_excit = Conv1d(c_in, c_out, 1, groups=math.gcd(c_in, c_out))
+            self.relu_excit_3 = PReLU(c_out)
+
+    def forward(self, x, sampler=None):
+        out = self.bn1(x) if self.has_bn1 else x
+        residual = out
+        out = self.relu1(self.conv1(out))
+        out = self.relu2(self.conv2(self.bn2(out)))
+        res = self.relu_short(self.conv_short(residual))
+        excit = self.dropout_1(residual, sampler) if self.has_dropout else residual
+        return out + res + _excitation(self, excit)
+
+
+def _excitation(block, excit):
+    """The excitation branch after its dropout: Linear -> PReLU -> Linear ->
+    PReLU [-> BN -> 1x1 grouped Conv -> PReLU when the channels change]."""
+    excit = block.relu_excit_2(block.fc2(block.relu_excit_1(block.fc1(excit))))
+    if block.has_excit_conv:
+        excit = block.relu_excit_3(block.conv_excit(block.bn_excit(excit)))
+    return excit

@@ -1,16 +1,25 @@
-"""Latent-space discriminator with gradient reversal and train-mode noise
-(counterpart of ``rankaae_tpu/models/discriminators.py:26-49``; reference
-``sc/clustering/model.py:631-663``).
+"""Latent-space discriminators with gradient reversal and train-mode noise
+(counterpart of ``rankaae_tpu/models/discriminators.py:26-88``; reference
+``sc/clustering/model.py:573-663``).
 
-It adds N(0, noise) to the input **in training mode only** and passes it
+Both add N(0, noise) to the input **in training mode only** and pass it
 through the GRL before the classifier.  ``beta=None`` skips the reversal.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from rankaae_tpu_torch.models.grl import grad_reverse
-from rankaae_tpu_torch.models.primitives import Dropout, Linear, PReLU
+from rankaae_tpu_torch.models.primitives import BatchNorm, Conv1d, Dropout, Linear, PReLU
+
+
+def _noise_and_reverse(module, x, beta, sampler):
+    if module.training and module.noise > 0:
+        if sampler is None:
+            raise ValueError("train-mode discriminator noise needs a sampler")
+        x = x + module.noise * sampler.normal("dis_noise", x.shape)
+    return x if beta is None else grad_reverse(x, beta)
 
 
 class DiscriminatorFC(nn.Module):
@@ -30,15 +39,40 @@ class DiscriminatorFC(nn.Module):
         self.lin_out = Linear(width, 1)
 
     def forward(self, x, beta=None, sampler=None):
-        if self.training and self.noise > 0:
-            if sampler is None:
-                raise ValueError("train-mode discriminator noise needs a sampler")
-            x = x + self.noise * sampler.normal("dis_noise", x.shape)
-        if beta is not None:
-            x = grad_reverse(x, beta)
-        out = x
+        out = _noise_and_reverse(self, x, beta, sampler)
         for i in range(self.layers - 1):
             out = getattr(self, f"lin{i}")(out)
             out = getattr(self, f"prelu{i}")(out)
             out = getattr(self, f"drop{i}")(out, sampler)
         return self.lin_out(out)
+
+
+class DiscriminatorCNN(nn.Module):
+    """CNN discriminator -> 2-class log-probabilities (reference
+    ``model.py:573-628``): the 64-dim embedding is treated as a length-64
+    1-channel signal through 5 replicate-padded convs."""
+
+    def __init__(self, nstyle: int = 5, hidden_size: int = 64, channels: int = 2,
+                 kernel_size: int = 5, dropout_rate: float = 0.2, noise: float = 0.1):
+        super().__init__()
+        self.noise = float(noise)
+        self.pre_lin = Linear(nstyle, hidden_size)
+        self.pre_prelu = PReLU(hidden_size)
+        ch = channels
+        self.chans = [(1, ch), (ch, ch), (ch, ch), (ch, ch), (ch, 1)]
+        for i, (ci, co) in enumerate(self.chans):
+            self.add_module(f"bn{i}", BatchNorm(ci))
+            self.add_module(f"conv{i}", Conv1d(ci, co, kernel_size, padding=(kernel_size - 1) // 2,
+                                               padding_mode="replicate"))
+            self.add_module(f"prelu{i}", PReLU(co))
+        self.post_bn = BatchNorm(hidden_size)
+        self.post_drop = Dropout(dropout_rate)
+        self.post_lin = Linear(hidden_size, 2)
+
+    def forward(self, x, beta=None, sampler=None):
+        x = _noise_and_reverse(self, x, beta, sampler)
+        x = self.pre_prelu(self.pre_lin(x))[:, None, :]
+        for i in range(len(self.chans)):
+            x = getattr(self, f"prelu{i}")(getattr(self, f"conv{i}")(getattr(self, f"bn{i}")(x)))
+        x = self.post_drop(self.post_bn(x[:, 0, :]), sampler)
+        return torch.log_softmax(self.post_lin(x), dim=1)

@@ -1,15 +1,17 @@
 """Encoders: spectrum (B, dim_in) -> standardized latent styles (B, nstyle)
-(counterpart of ``rankaae_tpu/models/encoders.py:17-42``).
+(counterpart of ``rankaae_tpu/models/encoders.py:17-99``).
 
 The encoder ends in an affine-free BatchNorm so the latent is standardized —
 that is what makes the N(0, I) adversarial prior meaningful.  Submodule names
 follow the flax module's (``lin{i}``, ``prelu{i}``, ``bn{i}``, ``lin_out``,
-``bn_style``) so the weight bridge maps them one to one.
+``block{i}``, ``lin3``, ``bn_style``) so the weight bridge maps them one to
+one.
 """
 from __future__ import annotations
 
 from torch import nn
 
+from rankaae_tpu_torch.models.blocks import EncodingBlock
 from rankaae_tpu_torch.models.primitives import BatchNorm, Dropout, Linear, PReLU
 
 
@@ -42,3 +44,41 @@ class FCEncoder(nn.Module):
             x = getattr(self, f"bn{i}")(x)
             x = getattr(self, f"drop{i}")(x, sampler)
         return self.bn_style(self.lin_out(x))
+
+
+class _ConvEncoder(nn.Module):
+    """(B, L) -> stride-2 EncodingBlocks -> flatten to 32 -> Linear -> BN."""
+
+    SPECS: tuple = ()
+
+    def __init__(self, nstyle: int = 5, dropout_rate: float = 0.2, dim_in: int = 256,
+                 n_layers: int = 3):
+        super().__init__()
+        self.n_blocks = len(self.SPECS)
+        for i, (c_in, c_out, in_len, out_len, k, e) in enumerate(self.SPECS):
+            in_len = dim_in if i == 0 else in_len
+            self.add_module(f"block{i}", EncodingBlock(
+                c_in, c_out, in_len, out_len, kernel_size=k, stride=2, excitation=e,
+                dropout_rate=dropout_rate))
+        self.lin3 = Linear(32, nstyle)
+        self.bn_style = BatchNorm(nstyle)
+
+    def forward(self, spec, sampler=None):
+        x = spec[:, None, :]
+        for i in range(self.n_blocks):
+            x = getattr(self, f"block{i}")(x, sampler)
+        return self.bn_style(self.lin3(x.reshape(x.shape[0], 32)))
+
+
+class Encoder(_ConvEncoder):
+    """5-block conv encoder ("normal" form, reference ``model.py:232-261``).
+    Block specs: (c_in, c_out, in_len, out_len, kernel, excitation)."""
+
+    SPECS = ((1, 4, 256, 128, 11, 4), (4, 4, 128, 64, 11, 4), (4, 4, 64, 32, 7, 2),
+             (4, 4, 32, 16, 7, 2), (4, 4, 16, 8, 5, 1))
+
+
+class CompactEncoder(_ConvEncoder):
+    """3-block conv encoder (reference ``model.py:264-295``)."""
+
+    SPECS = ((1, 4, 256, 64, 11, 4), (4, 4, 64, 16, 7, 2), (4, 4, 16, 8, 5, 1))

@@ -1,5 +1,5 @@
 """Neural-net primitives with PyTorch semantics (counterpart of
-``rankaae_tpu/models/primitives.py:104-368``, the FC subset).
+``rankaae_tpu/models/primitives.py:104-368``).
 
 * ``Linear`` is ``nn.Linear``; :func:`reset_parameters` re-draws every
   parameter with the torch-default initialisers (kaiming-uniform with
@@ -10,6 +10,10 @@
   with the biased batch variance and updates the running stats with the
   unbiased one, momentum 0.1, eps 1e-5 — the JAX module's semantics.
 * ``Dropout`` draws its keep-mask from the caller's :class:`Sampler`.
+* ``Conv1d`` is ``nn.Conv1d`` (zero or replicate padding, stride, groups;
+  weight (out, in/groups, k)); ``ConvTranspose1d`` is ``nn.ConvTranspose1d``
+  restricted to kernel == stride, the only case the model zoo uses (weight
+  (in, out/groups, k)).  Both layouts are also the flax modules'.
 """
 from __future__ import annotations
 
@@ -57,6 +61,22 @@ class BatchNorm(nn.BatchNorm1d):
         super().__init__(num_features, eps=1e-5, momentum=0.1, affine=False)
 
 
+Conv1d = nn.Conv1d
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """``ConvTranspose1d`` over (B, C, L) with groups and kernel == stride."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, groups: int = 1):
+        if kernel_size != stride:
+            raise ValueError(
+                "only kernel_size == stride is supported, as in the reference "
+                "architectures (sc/clustering/model.py:114-119,140)")
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         groups=groups)
+
+
 class Dropout(nn.Module):
     """Inverted dropout (torch semantics), active only in train mode; the
     keep-mask comes from the caller's sampler."""
@@ -77,12 +97,15 @@ class Dropout(nn.Module):
 
 @torch.no_grad()
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """Torch-default initialisation of every Linear/PReLU/BatchNorm under
-    ``module``, drawn from ``generator`` (``primitives.py:104-117`` in the
-    JAX package): U(+-1/sqrt(fan_in)) for Linear weights and biases."""
+    """Torch-default initialisation of every Linear/Conv/PReLU/BatchNorm
+    under ``module``, drawn from ``generator`` (``primitives.py:104-136`` in
+    the JAX package): U(+-1/sqrt(fan_in)) for weights and biases, with
+    fan_in = in_features for Linear, in/groups * k for Conv1d and
+    out/groups * k for ConvTranspose1d (torch reads dim 1 of its weight)."""
     for m in module.modules():
-        if isinstance(m, nn.Linear):
-            bound = 1.0 / math.sqrt(m.in_features)
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+            fan_in = m.in_features if isinstance(m, nn.Linear) else m.weight[0].numel()
+            bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)
             m.bias.uniform_(-bound, bound, generator=generator)
         elif isinstance(m, PReLU):

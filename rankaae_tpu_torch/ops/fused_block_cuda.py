@@ -1,0 +1,131 @@
+"""The eval-mode stride-1 ``EncodingBlock`` on the card: K3, one CUDA kernel
+(``csrc/fused_block.cu``), and its plain version.
+
+K3 replaces ``scripts/fused_block_probe.py::fused_block_kernel`` (via
+``fused_block``): bn1 -> conv1 (11 taps, replicate pad) -> PReLU -> bn2 ->
+conv2 (11 taps, zero pad) -> PReLU, plus the residual and the excitation MLP
+(Linear 256->2 -> PReLU -> Linear 2->256 -> PReLU), with running statistics,
+no dropout and no backward.  ``models/blocks.py`` sends every eval-mode
+block of that shape here: the decoders' 4->4 and 2->2 blocks at length 256.
+
+:func:`fused_block` takes the block's tensors in the layouts of the port's
+modules (conv weights (C, C, 11), ``fc1_w`` (2, 256), ``fc2_w`` (256, 2)).
+On a CUDA tensor it launches K3 on the current stream or raises; on a CPU
+tensor it computes :func:`fused_block_plain`, which mirrors the probe's
+``reference_block`` op by op.  K3 has no backward, so on either device it
+raises when autograd would need one (grad enabled and an input that
+requires grad).  ``launches`` counts the kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from rankaae_tpu_torch.ops import _nvcc
+
+SOURCE = _nvcc.CSRC / "fused_block.cu"
+L, K, E = 256, 11, 2          # compile-time constants of the kernel
+PAD = (K - 1) // 2
+CHANNELS = (2, 4)             # the instantiated channel counts
+EPS = 1e-5
+
+#: kernel launches made through :func:`fused_block` (plain calls not counted)
+launches = 0
+
+_lib: Optional[ctypes.CDLL] = None
+
+_ARGS = ("bn1_mean", "bn1_var", "w1", "b1", "a1", "bn2_mean", "bn2_var", "w2", "b2",
+         "a2", "fc1_w", "fc1_b", "ae1", "fc2_w", "fc2_b", "ae2")
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/fused_block.cu`` (once per source version) and load it."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = _nvcc.load(SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_block.argtypes = [p, i, i] + [p] * len(_ARGS) + [p, p]
+    lib.fused_block.restype = i
+    lib.fused_block_error_string.argtypes = [i]
+    lib.fused_block_error_string.restype = ctypes.c_char_p
+    for name in ("fused_block_length", "fused_block_taps", "fused_block_excitation"):
+        getattr(lib, name).restype = i
+    consts = (lib.fused_block_length(), lib.fused_block_taps(), lib.fused_block_excitation())
+    if consts != (L, K, E):
+        raise RuntimeError(f"{SOURCE.name} was built for (L, K, E) = {consts}, "
+                           f"this wrapper expects {(L, K, E)}")
+    _lib = lib
+    return lib
+
+
+def _shapes(c: int) -> dict:
+    vec = (c,)
+    return {"bn1_mean": vec, "bn1_var": vec, "w1": (c, c, K), "b1": vec, "a1": vec,
+            "bn2_mean": vec, "bn2_var": vec, "w2": (c, c, K), "b2": vec, "a2": vec,
+            "fc1_w": (E, L), "fc1_b": (E,), "ae1": vec, "fc2_w": (L, E), "fc2_b": (L,),
+            "ae2": vec}
+
+
+def _check(x: torch.Tensor, tensors: dict) -> None:
+    if x.dim() != 3 or x.shape[1] not in CHANNELS or x.shape[2] != L or x.shape[0] < 1:
+        raise ValueError(f"x must be (B >= 1, C in {CHANNELS}, {L}), got {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    for name, shape in _shapes(x.shape[1]).items():
+        t = tensors[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    for name, t in (("x", x), *tensors.items()):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def fused_block_plain(x, bn1_mean, bn1_var, w1, b1, a1, bn2_mean, bn2_var, w2, b2, a2,
+                      fc1_w, fc1_b, ae1, fc2_w, fc2_b, ae2):
+    """Plain version of K3 (the probe's ``reference_block``), (B, C, L) -> (B, C, L)."""
+    def per_channel(v):
+        return v[None, :, None]
+
+    def prelu(v, a):
+        return torch.where(v >= 0, v, a * v)
+
+    xb = (x - per_channel(bn1_mean)) * torch.rsqrt(per_channel(bn1_var) + EPS)
+    h = F.conv1d(F.pad(xb, (PAD, PAD), mode="replicate"), w1) + per_channel(b1)
+    h = prelu(h, per_channel(a1))
+    h = (h - per_channel(bn2_mean)) * torch.rsqrt(per_channel(bn2_var) + EPS)
+    h2 = F.conv1d(F.pad(h, (PAD, PAD)), w2) + per_channel(b2)
+    h2 = prelu(h2, per_channel(a2))
+    ex = prelu(F.linear(xb, fc1_w, fc1_b), per_channel(ae1))
+    ex = prelu(F.linear(ex, fc2_w, fc2_b), per_channel(ae2))
+    return h2 + xb + ex
+
+
+def fused_block(x, bn1_mean, bn1_var, w1, b1, a1, bn2_mean, bn2_var, w2, b2, a2,
+                fc1_w, fc1_b, ae1, fc2_w, fc2_b, ae2):
+    """K3 on a CUDA tensor, its plain version on a CPU tensor."""
+    global launches
+    args = (bn1_mean, bn1_var, w1, b1, a1, bn2_mean, bn2_var, w2, b2, a2,
+            fc1_w, fc1_b, ae1, fc2_w, fc2_b, ae2)
+    _check(x, dict(zip(_ARGS, args)))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *args)):
+        raise RuntimeError("fused_block has no backward: call it under torch.no_grad()")
+    if x.device.type == "cpu":
+        return fused_block_plain(x, *args)
+    lib = build()
+    out = torch.empty_like(x)
+    b, c, _ = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.fused_block(x.data_ptr(), b, c, *(t.data_ptr() for t in args),
+                         out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_block launch failed: {lib.fused_block_error_string(rc).decode()}")
+    launches += 1
+    return out

@@ -20,67 +20,34 @@ the tests; ``chip_smoke.py`` holds the kernels against the same functions on
 the card).  ``fwd_launches``/``bwd_launches`` count the kernel launches.
 
 The shared library is built with ``nvcc`` on first use, from the source in
-this package, into ``rankaae_tpu_torch/_build/`` (keyed by the source's hash),
-and loaded with ``ctypes``.
+this package, by ``ops/_nvcc.py`` and loaded with ``ctypes``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from rankaae_tpu_torch.ops import _nvcc
 from rankaae_tpu_torch.ops import kendall as plain
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "kendall.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _nvcc.CSRC / "kendall.cu"
 MAX_B = 46340          # B * B must fit in int32 (the per-block pair counts)
 
 #: kernel launches made through the wrappers (plain-version calls not counted)
 fwd_launches = 0
 bwd_launches = 0
-#: nvcc's output (ptxas register/shared-memory report) of the last build
-build_log = ""
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
-    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
-    for c in candidates:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the Kendall kernels "
-                       "cannot be built")
-
-
 def build() -> ctypes.CDLL:
     """Compile ``csrc/kendall.cu`` (once per source version) and load it."""
-    global _lib, build_log
+    global _lib
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"libkendall_{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                             capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{build_log}")
-        os.replace(tmp, so)       # atomic: concurrent builders never see half a file
-    lib = ctypes.CDLL(str(so))
+    lib = _nvcc.load(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.kendall_pair_sums.argtypes = [p, p, i, i, i, i, f, p, p, p, p, p, p, p]
     lib.kendall_pair_sums.restype = i

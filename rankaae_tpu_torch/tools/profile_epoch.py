@@ -53,6 +53,14 @@ def profile_epoch(warmup: int = 2, top: int = 15) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
+    return {"card": card, "epoch": warmup, "n_train": core.n_train, "batches": core.n_batch,
+            **kernel_summary(prof, wall_ms, ("pair_sums", "grad_rows"), top)}
+
+
+def kernel_summary(prof, wall_ms: float, ours: tuple, top: int = 15) -> dict:
+    """Device time, idle share and launches of a profiled window, the
+    kernels whose names contain one of ``ours``, and the ``top`` kernels by
+    device time (one stream, so the summed kernel time is the busy time)."""
     per_kernel = defaultdict(lambda: [0, 0.0])
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -60,17 +68,13 @@ def profile_epoch(warmup: int = 2, top: int = 15) -> dict:
             per_kernel[evt.name][1] += (evt.time_range.end - evt.time_range.start) / 1e3
     device_ms = sum(ms for _, ms in per_kernel.values())
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
-    kendall = {n: v for n, v in per_kernel.items() if "pair_sums" in n or "grad_rows" in n}
+    mine = {n: v for n, v in per_kernel.items() if any(o in n for o in ours)}
     return {
-        "card": card,
-        "epoch": warmup,
-        "n_train": core.n_train,
-        "batches": core.n_batch,
         "wall_ms": wall_ms,
         "device_kernel_ms": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
         "kernel_launches": sum(n for n, _ in per_kernel.values()),
-        "kendall_kernels": {n: {"launches": c, "ms": ms} for n, (c, ms) in kendall.items()},
+        "our_kernels": {n: {"launches": c, "ms": ms} for n, (c, ms) in mine.items()},
         "top_kernels": [{"name": n[:120], "launches": c, "ms": ms}
                         for n, (c, ms) in ranked[:top]],
     }

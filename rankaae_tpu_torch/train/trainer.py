@@ -18,9 +18,10 @@ quality metrics, the plateau schedulers, the best trackers — so the loop
 needs no host sync.  The Kendall loss goes through the CUDA kernel pair on
 the card (``ops/kendall_cuda.py``).
 
-Only the faithful protocol with gradient reversal and the FC discriminator
-is ported; the ``fused``/``joint`` protocols and the non-GRL GAN branch
-raise ``NotImplementedError``.
+Only the faithful protocol with gradient reversal, the FC form and the FC
+discriminator is ported; the conv forms and ``DiscriminatorCNN`` (which the
+registry builds for inference), the ``fused``/``joint`` protocols and the
+non-GRL GAN branch raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -107,6 +108,11 @@ class RankAAETrainer:
 
     def __init__(self, cfg: TrainConfig, n_train: int, n_val: int, device=None):
         cfg.validate()
+        if cfg.ae_form in ("normal", "compact") or cfg.use_cnn_discriminator:
+            raise NotImplementedError(
+                f"training ae_form {cfg.ae_form!r} (use_cnn_discriminator="
+                f"{cfg.use_cnn_discriminator}) is not ported yet: ROADMAP queue 1, "
+                "first item (train the conv forms)")
         if cfg.protocol != "faithful":
             raise NotImplementedError(
                 f"protocol {cfg.protocol!r} is not ported yet (ROADMAP queue 1, item 13)")

@@ -1,22 +1,27 @@
-"""Weight bridge between the JAX trainer's pytrees and this package's modules.
+"""Weight bridge between the JAX package's pytrees and this package's modules.
 
-``rankaae_tpu``'s trainer keeps ``params`` and ``batch_stats`` as
-``{'enc', 'dec', 'dis'}`` pytrees of flax leaves; this package keeps the
-same numbers in ``nn.Module`` ``state_dict``s whose submodule names match the
-flax module names.  The mapping per leaf:
+``rankaae_tpu`` keeps ``params`` and ``batch_stats`` as ``{'enc', 'dec',
+'dis'}`` pytrees of flax leaves, nested by submodule (``dec/eblock0/conv1/
+weight``); this package keeps the same numbers in ``nn.Module``s whose
+submodule names match the flax names, so a flax path joined with ``.`` is a
+``state_dict`` key.  The mapping per leaf:
 
-=================================  ====================================
-flax (numpy arrays)                torch ``state_dict``
-=================================  ====================================
-``params/<lin>/kernel`` (in, out)  ``<lin>.weight`` (out, in)
-``params/<lin>/bias``              ``<lin>.bias``
-``params/<prelu>/alpha``           ``<prelu>.weight``
-``batch_stats/<bn>/mean``          ``<bn>.running_mean``
-``batch_stats/<bn>/var``           ``<bn>.running_var``
-=================================  ====================================
+=======================================  ==========================================
+flax (numpy arrays)                      torch module, ``state_dict`` entry
+=======================================  ==========================================
+``params/.../kernel`` (in, out)          ``nn.Linear``, ``weight`` (out, in)
+``params/.../weight``                    ``nn.Conv1d``/``nn.ConvTranspose1d``,
+                                         ``weight`` (same layout)
+``params/.../alpha``                     ``nn.PReLU``, ``weight``
+``params/.../bias``                      ``bias`` (Linear and the convs)
+``batch_stats/.../mean``                 ``nn.BatchNorm1d``, ``running_mean``
+``batch_stats/.../var``                  ``nn.BatchNorm1d``, ``running_var``
+=======================================  ==========================================
 
-``num_batches_tracked`` has no flax counterpart: :func:`from_jax` sets it to
-0 and :func:`to_jax` drops it (momentum is fixed, so torch never reads it).
+:func:`from_jax` decides by the flax leaf name, :func:`to_jax` by the torch
+module's type; neither looks at a leaf's rank.  ``num_batches_tracked`` has
+no flax counterpart: :func:`from_jax` sets it to 0 and :func:`to_jax` drops
+it (momentum is fixed, so torch never reads it).
 """
 from __future__ import annotations
 
@@ -24,58 +29,79 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-MODULES = ("enc", "dec", "dis")
-
-_PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "alpha": "weight"}
+_PARAM_LEAVES = {"kernel": "weight", "weight": "weight", "alpha": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix, key, value
 
 
 def _module_from_jax(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
-    for layer, leaves in params.items():
-        for leaf, value in leaves.items():
-            arr = np.asarray(value, np.float32)
-            if leaf == "kernel":
-                arr = arr.T
-            sd[f"{layer}.{_PARAM_LEAVES[leaf]}"] = torch.tensor(arr)   # copies
-    for layer, leaves in stats.items():
-        for leaf, value in leaves.items():
-            sd[f"{layer}.{_STAT_LEAVES[leaf]}"] = torch.tensor(np.asarray(value, np.float32))
-        sd[f"{layer}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    for path, leaf, value in _leaves(params):
+        if leaf not in _PARAM_LEAVES:
+            raise KeyError(f"unknown flax parameter leaf {'/'.join(path + (leaf,))!r}")
+        arr = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            arr = arr.T
+        sd[".".join(path + (_PARAM_LEAVES[leaf],))] = torch.tensor(arr)   # copies
+    layers = set()
+    for path, leaf, value in _leaves(stats):
+        if leaf not in _STAT_LEAVES:
+            raise KeyError(f"unknown flax batch_stats leaf {'/'.join(path + (leaf,))!r}")
+        sd[".".join(path + (_STAT_LEAVES[leaf],))] = torch.tensor(np.asarray(value, np.float32))
+        layers.add(path)
+    for path in layers:
+        sd[".".join(path + ("num_batches_tracked",))] = torch.zeros((), dtype=torch.long)
     return sd
 
 
 def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
-    """JAX ``{'enc','dec','dis'}`` params/batch_stats (numpy leaves) ->
-    ``{'enc','dec','dis'}`` torch ``state_dict``s (CPU tensors)."""
-    return {m: _module_from_jax(params[m], batch_stats.get(m, {}) or {})
-            for m in MODULES}
+    """JAX ``{role: params}``/``{role: batch_stats}`` (numpy leaves, nested
+    by submodule) -> ``{role: state_dict}`` (CPU tensors), for every role in
+    ``params``."""
+    return {m: _module_from_jax(params[m], batch_stats.get(m) or {}) for m in params}
 
 
-def _module_to_jax(sd: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
+def _module_to_jax(module: nn.Module) -> Tuple[dict, dict]:
     params: dict = {}
     stats: dict = {}
-    for key, value in sd.items():
-        layer, name = key.rsplit(".", 1)
-        if name == "num_batches_tracked":
-            continue
-        arr = value.detach().cpu().numpy()
-        if name in ("running_mean", "running_var"):
-            stats.setdefault(layer, {})["mean" if name == "running_mean" else "var"] = arr
-        elif name == "bias":
-            params.setdefault(layer, {})["bias"] = arr
-        elif arr.ndim == 2:       # Linear weight (out, in) -> kernel (in, out)
-            params.setdefault(layer, {})["kernel"] = np.ascontiguousarray(arr.T)
-        else:                     # PReLU weight
-            params.setdefault(layer, {})["alpha"] = arr
+
+    def put(tree, name, leaf, tensor):
+        node = tree
+        for part in name.split(".") if name else ():
+            node = node.setdefault(part, {})
+        # a copy: numpy() of a CPU tensor shares its memory, and a later
+        # train-mode forward updates the running statistics in place
+        node[leaf] = np.array(tensor.detach().cpu().numpy(), order="C", copy=True)
+
+    for name, m in module.named_modules():
+        if isinstance(m, nn.Linear):
+            put(params, name, "kernel", m.weight.T)
+            put(params, name, "bias", m.bias)
+        elif isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+            put(params, name, "weight", m.weight)
+            put(params, name, "bias", m.bias)
+        elif isinstance(m, nn.PReLU):
+            put(params, name, "alpha", m.weight)
+        elif isinstance(m, nn.BatchNorm1d):
+            put(stats, name, "mean", m.running_mean)
+            put(stats, name, "var", m.running_var)
     return params, stats
 
 
-def to_jax(state_dicts: Mapping[str, Mapping[str, torch.Tensor]]) -> Tuple[dict, dict]:
-    """Inverse of :func:`from_jax`: ``(params, batch_stats)`` as nested dicts
-    of numpy arrays, in the JAX trainer's layout."""
+def to_jax(models: Mapping[str, nn.Module]) -> Tuple[dict, dict]:
+    """Inverse of :func:`from_jax`: ``(params, batch_stats)`` of the given
+    ``{role: module}`` as nested dicts of numpy arrays, in the JAX package's
+    layout."""
     params, batch_stats = {}, {}
-    for m in MODULES:
-        params[m], batch_stats[m] = _module_to_jax(state_dicts[m])
+    for role, module in models.items():
+        params[role], batch_stats[role] = _module_to_jax(module)
     return params, batch_stats

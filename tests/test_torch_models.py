@@ -90,7 +90,7 @@ def test_autoencoder_modules_match_flax(pair, name, train):
         y_ref, mut = jmods[name].apply(_jvars(params, stats, name), jnp.asarray(x),
                                        train=True, mutable=["batch_stats"])
         new_stats = _np_tree(mut["batch_stats"])
-        _, got_stats = to_jax({"enc": {}, "dec": {}, "dis": {}, name: tm.state_dict()})
+        _, got_stats = to_jax({name: tm})
         for bn, leaves in new_stats.items():
             for leaf, ref in leaves.items():
                 np.testing.assert_allclose(got_stats[name][bn][leaf], ref, atol=ATOL)
@@ -133,7 +133,7 @@ def test_grad_reverse_sign_and_scale():
 
 def test_weight_bridge_round_trip_is_exact(pair):
     _, params, stats, tmods = pair
-    back_params, back_stats = to_jax({k: m.state_dict() for k, m in tmods.items()})
+    back_params, back_stats = to_jax(tmods)
     for ref, got in ((params, back_params), (stats, back_stats)):
         ref_leaves, ref_def = jax.tree_util.tree_flatten(ref)
         got_leaves, got_def = jax.tree_util.tree_flatten(got)

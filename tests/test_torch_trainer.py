@@ -19,8 +19,9 @@
   autoencoder weight still moves by more than 1e-3.
 * One ``_validate`` from the same weights and draws (atol 1e-5).
 * A CPU smoke of the ``Trainer.from_data(...).train()`` facade.
-* The package rules: nothing of ``jax`` or ``rankaae_tpu`` is imported, and
-  the entry points do not fall back to the CPU.
+* The package rules: nothing of ``jax``, ``rankaae_tpu`` or ``msgpack`` is
+  imported, the entry points (training and serving) do not fall back to the
+  CPU, and the trainer refuses the paths it does not implement yet.
 """
 import ast
 import os
@@ -38,8 +39,12 @@ from rankaae_tpu.train.trainer import RankAAETrainer as JaxTrainer
 from rankaae_tpu.train.trainer import TrialData as JaxTrialData
 from rankaae_tpu.utils.config import TrainConfig as JaxTrainConfig
 
+from rankaae_tpu_torch.models.inference import InferenceModel
+from rankaae_tpu_torch.models.registry import build_autoencoder
+from rankaae_tpu_torch.serve import BatchedInference, main as serve_main
 from rankaae_tpu_torch.train.facade import Trainer
 from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+from rankaae_tpu_torch.utils.checkpoint import save_model_bundle
 from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
 from rankaae_tpu_torch.utils.sampler import Sampler
 from rankaae_tpu_torch.utils.weights import from_jax, to_jax
@@ -124,7 +129,7 @@ def test_one_faithful_batch_matches_jax(pair):
     for name in ("dis", "gen", "aux", "recon", "smooth", "mi"):
         np.testing.assert_allclose(tlosses[name].item(), float(jlosses[name]),
                                    atol=1e-4, err_msg=name)
-    params, stats = to_jax({k: m.state_dict() for k, m in ttr.models.items()})
+    params, stats = to_jax(ttr.models)
     ref_params = jax.tree_util.tree_map(np.asarray, new_jstate.params)
     ref_stats = jax.tree_util.tree_map(np.asarray, new_jstate.batch_stats)
     old_params = jax.tree_util.tree_map(np.asarray, jstate.params)
@@ -182,18 +187,29 @@ def test_facade_trains_on_cpu(synthetic_csv, tmp_path):
     assert len(tr.epoch_seconds) == 2
 
 
-def test_entry_points_default_to_cuda(synthetic_csv, monkeypatch):
+def test_entry_points_default_to_cuda(synthetic_csv, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     p = Parameters.from_yaml(os.path.join(REPO, "example", "fix_config.yaml"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer.from_data(synthetic_csv, config_parameters=p)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RankAAETrainer(TrainConfig(**CFG), n_train=B, n_val=N_VAL)
+    cfg = TrainConfig(**{**CFG, "ae_form": "compact"})
+    encoder, decoder = build_autoencoder(cfg)
+    params, stats = to_jax({"enc": encoder, "dec": decoder})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceModel(params, stats, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedInference(InferenceModel(params, stats, cfg))     # serves on the model's device
+    bundle = save_model_bundle(str(tmp_path / "m.mpk"), params, stats, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_main([bundle, synthetic_csv, str(tmp_path / "out")])
 
 
 def test_unported_paths_raise():
     for kw in ({"protocol": "joint"}, {"protocol": "fused"},
-               {"gradient_reversal": False}):
+               {"gradient_reversal": False}, {"ae_form": "normal"}, {"ae_form": "compact"},
+               {"use_cnn_discriminator": True}):
         with pytest.raises(NotImplementedError):
             RankAAETrainer(TrainConfig(**{**CFG, **kw}), n_train=B, n_val=N_VAL, device="cpu")
 
@@ -204,7 +220,8 @@ def test_package_imports_nothing_of_jax():
         "import rankaae_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'rankaae_tpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'rankaae_tpu', 'msgpack')]\n"
         "assert len(names) >= 20, names\n"
         "assert not bad, bad\n"
     )
@@ -216,4 +233,4 @@ def test_package_imports_nothing_of_jax():
              for a in node.names}
     roots |= {node.module.split(".")[0] for node in ast.walk(tree)
               if isinstance(node, ast.ImportFrom) and node.module}
-    assert not roots & {"jax", "jaxlib", "flax", "rankaae_tpu"}, roots
+    assert not roots & {"jax", "jaxlib", "flax", "rankaae_tpu", "msgpack"}, roots
