@@ -7,11 +7,15 @@ Phases (any failure exits non-zero and prints no result):
 
 1. build — compile ``rankaae_tpu_torch/csrc/kendall.cu`` and
    ``csrc/fused_block.cu`` with nvcc, one process per source, in parallel;
-2. kernels — hold the Kendall kernels K1 (pair sums) and K2 (gradient rows)
-   against their plain PyTorch versions on the card, over the batch sizes
-   the main path gives them, T in {1, 8} stacked trials, activation off and
-   on, and a discrete descriptor column (exact ties); then time them at the
-   main-path shape (T=1, B=1024, K=5);
+2. kernels — hold the Kendall kernels K1 (pair sums, with and without the
+   row sums P and N) and K2 (the gradient from P, N, w and g) against their
+   plain PyTorch versions on the card, over the batch sizes the main path
+   gives them and B 2 and 33 (K1's last-block finish at one tile and at
+   several), T in {1, 8} stacked trials, activation off and on, and a
+   discrete descriptor column (exact ties); check that the loss and the
+   gradient are bit-identical over three calls, and that a CUDA graph of K1
+   replays it exactly and leaves its tickets at 0; then time both at the
+   main-path shape (T=1, B=1024, K=5), and on the card at T 8 and 32;
 3. main path — write the 7,000-row synthetic dataset of
    ``example/make_data.py``, load ``example/fix_config.yaml`` at full width
    (only ``max_epoch`` cut) and run ``Trainer.from_data(...).train()`` on the
@@ -23,10 +27,11 @@ Phases (any failure exits non-zero and prints no result):
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
-1e-7), counts exact, styles gradient atol 1e-6 (sums taken in another
-order); phase 4 atol 1e-4 on the six losses (as the CPU parity test
-against the JAX package), and per leaf of the weights after the batch a max
-difference of 1e-3 and a relative norm of 1e-3 (see ``LEAF_ATOL``); phase 5
+1e-7), counts, weights and row sums exact (integers), styles gradient atol
+1e-6 (sums taken in another order); phase 4 atol 1e-4 on the six losses
+(as the CPU parity test against the JAX package), and per leaf of the
+weights after the batch a max difference of 1e-3 and a relative norm of
+1e-3 (see ``LEAF_ATOL``); phase 5
 max |kernel - plain| <= 1e-5 * max |plain| (the same float32 operations,
 summed in another order); phase 6 ``reconstruct`` vs ``decode(encode)``
 atol 1e-5 and card vs CPU atol 1e-4 on styles and reconstructions.
@@ -45,9 +50,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (dense): HBM bytes/s and fp32 non-tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# fp32 operations per (i, j, k) pair: K1 = d-diff, sign, s-diff, product,
-# accumulate; K2 = the same five plus the weight select
-OPS_PER_PAIR = {"kendall_pair_sums": 5, "kendall_grad_rows": 6}
+# K1's operations per unordered pair {a, j} of one (t, k): the two
+# differences, the sign of their product and its compare.  p_aj = p_ja and
+# tgt_ja = -tgt_aj, so one evaluation serves both rows
+OPS_PER_PAIR = 4
+# and per unordered pair with tgt != 0: the sum and count adds and the
+# row-sum add of each of its two rows (a tied pair adds nothing)
+OPS_PER_UNTIED_PAIR = 4
+# K2's operations per (t, a, k) element: w * P, + N, * scale
+OPS_PER_ELEMENT = 3
 
 LOSS_RTOL, LOSS_ATOL, GRAD_ATOL, PARITY_ATOL = 1e-5, 1e-7, 1e-6, 1e-4
 # phase 4, per parameter/stat leaf after the batch: max |card - CPU| and
@@ -75,7 +86,8 @@ def make_pair(torch, np, seed, t, b, k=5, device="cuda"):
     rng = np.random.default_rng(seed)
     d = rng.normal(size=(t, b, k)).astype(np.float32)
     d[..., 1] = rng.choice([4.0, 5.0, 6.0], size=(t, b))
-    dz = (d - d.mean(axis=1, keepdims=True)) / d.std(axis=1, keepdims=True)
+    # (a tied column of B 2 may have no spread)
+    dz = (d - d.mean(axis=1, keepdims=True)) / np.maximum(d.std(axis=1, keepdims=True), 1e-6)
     s = (0.6 * dz + rng.normal(size=(t, b, k))).astype(np.float32)
     g = rng.uniform(0.5, 1.5, size=(t,)).astype(np.float32)
     return (torch.tensor(d, device=device), torch.tensor(s, device=device),
@@ -98,7 +110,8 @@ def time_ms(torch, fn, reps=200, warmup=20):
 
 def graph_ms(torch, fn, reps=200):
     """Device time per call: ``reps`` calls captured in one CUDA graph and
-    replayed, so host launch overhead is not in the number."""
+    replayed, so host launch overhead is not in the number.  The warm-up
+    runs on the capture stream (K1's tickets are kept per stream)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -106,21 +119,39 @@ def graph_ms(torch, fn, reps=200):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     return time_ms(torch, graph.replay, reps=5, warmup=2) / reps
 
 
-def bound(name, t, b, k):
-    """Least time (ms) for the work of one call, and what bounds it."""
+def untied_pairs(d):
+    """Unordered pairs {a, j} of one (t, k) with d_a != d_j, over all (t, k)
+    of the descriptors d (T, B, K)."""
+    return int((d[:, :, None, :] != d[:, None, :, :]).sum().item()) // 2
+
+
+def bound(name, t, b, k, untied):
+    """Least time (ms) for the work of one call, and what bounds it.
+
+    K1 (a training call, with the row sums): reads d and s (2 T B K words),
+    writes sums, cnts (2 T K each), w (T K), loss (T) and P, N (2 T B K);
+    does OPS_PER_PAIR operations on each of the T K (B^2 - B) / 2 unordered
+    pairs and OPS_PER_UNTIED_PAIR more on each of the ``untied`` ones whose
+    descriptors differ (this run's data).  One evaluation of a pair serves
+    both orders: p_aj = p_ja, tgt_ja = -tgt_aj, so it gives both rows' P/N
+    terms (the kernel, which evaluates every ordered pair, does twice this
+    work).
+    K2: reads P, N (2 T B K), w (T K) and g (T), writes grad (T B K), and
+    does OPS_PER_ELEMENT operations per element: bound by bytes."""
     f32 = 4
-    inputs = 2 * t * b * k * f32
     if name == "kendall_pair_sums":
-        moved = inputs + t * k * (2 + 2 + 1) * f32 + t * f32      # sums, cnts, w, loss
+        moved = (2 * t * b * k + t * k * (2 + 2 + 1) + t + 2 * t * b * k) * f32
+        pairs = t * k * (b * b - b) // 2
+        ops = OPS_PER_PAIR * pairs + OPS_PER_UNTIED_PAIR * untied
     else:
-        moved = inputs + t * k * f32 + t * f32 + t * b * k * f32   # w, g in; grad out
-    ops = OPS_PER_PAIR[name] * t * b * b * k
+        moved = (2 * t * b * k + t * k + t + t * b * k) * f32
+        ops = OPS_PER_ELEMENT * t * b * k
     t_bytes, t_ops = moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -277,52 +308,105 @@ def serve_normal(torch, np, fb, cfg_path, tmp, card):
 
 
 def check_kernels(torch, np, kc, tk, batch_sizes):
-    """Phase 2: every case against the plain versions; returns the
-    main-shape errors."""
+    """Phase 2: every case against the plain versions, and three repeated
+    calls bit-identical; returns the main-shape errors."""
     errs = {}
     n_cases = 0
     for b in batch_sizes:
         for t in (1, 8):
             for activate in (False, True):
                 d, s, g = make_pair(torch, np, 1000 * b + 10 * t + activate, t, b)
-                # K1 wrapper vs its plain version: counts exact, sums, loss
-                sums, cnts, w, loss = kc.pair_sums(d, s, activate)
-                sums_p, cnts_p, w_p, loss_p = kc.pair_sums_plain(d, s, activate)
+                # K1 wrapper vs its plain version: counts, weights and row
+                # sums exact; sums and loss
+                sums, cnts, w, loss, pos, neg = kc.pair_sums(d, s, activate, rows=True)
+                sums_p, cnts_p, w_p, loss_p, pos_p, neg_p = kc.pair_sums_plain(
+                    d, s, activate, rows=True)
                 assert torch.equal(cnts, cnts_p), (b, t, activate, cnts, cnts_p)
+                assert torch.equal(pos, pos_p) and torch.equal(neg, neg_p), (b, t, activate)
                 torch.testing.assert_close(w, w_p, rtol=0, atol=0)
                 torch.testing.assert_close(sums, sums_p, rtol=LOSS_RTOL, atol=LOSS_ATOL)
                 torch.testing.assert_close(loss, loss_p, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+                # without the row sums (validation): the same values
+                sums_v, cnts_v, w_v, loss_v = kc.pair_sums(d, s, activate)
+                assert torch.equal(sums_v, sums) and torch.equal(cnts_v, cnts) \
+                    and torch.equal(w_v, w) and torch.equal(loss_v, loss), (b, t, activate)
                 # K2 wrapper vs its plain version
-                rows = kc.grad_rows(d, s, w, g)
-                rows_p = kc.grad_rows_plain(d, s, w_p, g)
+                rows = kc.grad_rows(pos, neg, w, g)
+                rows_p = kc.grad_rows_plain(pos_p, neg_p, w_p, g)
                 torch.testing.assert_close(rows, rows_p, rtol=0, atol=GRAD_ATOL)
-                # the autograd Function vs the plain loss of ops/kendall.py
-                s1 = s.clone().requires_grad_(True)
+                # the autograd Function vs the plain loss of ops/kendall.py,
+                # and bit-identical over three calls
                 s2 = s.clone().requires_grad_(True)
-                l1 = kc.KendallFunction.apply(d, s1, activate)
                 l2 = tk.kendall_constraint(d, s2, activate=activate)
-                l1.backward(g)
                 l2.backward(g)
+                runs = []
+                for _ in range(3):
+                    s1 = s.clone().requires_grad_(True)
+                    l1 = kc.KendallFunction.apply(d, s1, activate)
+                    l1.backward(g)
+                    runs.append((l1.detach(), s1.grad))
                 torch.testing.assert_close(l1, l2, rtol=LOSS_RTOL, atol=LOSS_ATOL)
                 torch.testing.assert_close(s1.grad, s2.grad, rtol=0, atol=GRAD_ATOL)
+                for l_r, g_r in runs[1:]:
+                    assert torch.equal(l_r, runs[0][0]) and torch.equal(g_r, runs[0][1]), \
+                        ("not bit-identical", b, t, activate)
                 if (b, t, activate) == (1024, 1, True):
                     errs["kendall_pair_sums"] = (l1 - l2).abs().max().item()
                     errs["kendall_grad_rows"] = (s1.grad - s2.grad).abs().max().item()
                 n_cases += 1
     torch.cuda.synchronize()
     print(f"kernels: {n_cases} cases agree with the plain versions "
-          f"(B in {sorted(batch_sizes)}, T in (1, 8), activate off/on, tied column)")
+          f"(B in {sorted(batch_sizes)}, T in (1, 8), activate off/on, tied column; "
+          f"P, N exact; loss and gradient bit-identical over 3 calls)")
     return errs
 
 
-def time_kernels(torch, np, kc):
-    d, s, g = make_pair(torch, np, 7, 1, 1024)
-    _, _, w, _ = kc.pair_sums(d, s, True)
+def assert_tickets_clear(kc, where):
+    """Every K1 ticket buffer (one per device and stream) is back at 0."""
+    for key, tickets in kc._tickets.items():
+        assert tickets.count_nonzero().item() == 0, f"K1 tickets {key} not reset {where}"
+
+
+def check_graph(torch, np, kc):
+    """K1 (with the row sums) captured in a CUDA graph once its tickets exist
+    (warm-up on the capture stream): with its outputs poisoned, each replay
+    must rewrite them exactly as an eager call computes them, and leave
+    every ticket at 0."""
+    d, s, _ = make_pair(torch, np, 5, 8, 1024)
+    eager = kc.pair_sums(d, s, True, rows=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kc.pair_sums(d, s, True, rows=True)            # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = kc.pair_sums(d, s, True, rows=True)
+    for _ in range(3):
+        for x in out:
+            x.fill_(float("nan") if x.is_floating_point() else -1)
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(out, eager):
+            assert torch.equal(x, y), "graph replay differs from the eager call"
+        assert_tickets_clear(kc, "after a graph replay")
+    print("graph: K1 captured at T 8, B 1024; 3 replays equal the eager call, tickets at 0")
+
+
+def time_kernels(torch, np, kc, b, k):
+    """Wrapper, device (CUDA graph) and plain times at the main-path shape
+    (T 1, B ``b``, K ``k``): K1 as training calls it (with the row sums) and
+    as validation does (without), and K2; with the bound of K1 (training
+    call) and K2 on these inputs."""
+    d, s, g = make_pair(torch, np, 7, 1, b, k)
+    _, _, w, _, pos, neg = kc.pair_sums(d, s, True, rows=True)
     calls = {
-        "kendall_pair_sums": (lambda: kc.pair_sums(d, s, True),
-                              lambda: kc.pair_sums_plain(d, s, True)),
-        "kendall_grad_rows": (lambda: kc.grad_rows(d, s, w, g),
-                              lambda: kc.grad_rows_plain(d, s, w, g)),
+        "kendall_pair_sums": (lambda: kc.pair_sums(d, s, True, rows=True),
+                              lambda: kc.pair_sums_plain(d, s, True, rows=True)),
+        "kendall_pair_sums_no_rows": (lambda: kc.pair_sums(d, s, True),
+                                      lambda: kc.pair_sums_plain(d, s, True)),
+        "kendall_grad_rows": (lambda: kc.grad_rows(pos, neg, w, g),
+                              lambda: kc.grad_rows_plain(pos, neg, w, g)),
     }
     out = {}
     for name, (kernel, plain) in calls.items():
@@ -330,6 +414,24 @@ def time_kernels(torch, np, kc):
         p1, k1, k2, p2 = (time_ms(torch, f) for f in (plain, kernel, kernel, plain))
         out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                      "device_ms": graph_ms(torch, kernel)}
+        print(f"time {name} (T 1, B {b}, K {k}, activate): {json.dumps(out[name])}")
+    untied = untied_pairs(d)
+    for name in ("kendall_pair_sums", "kendall_grad_rows"):
+        out[name]["bound_ms"], out[name]["bound_by"] = bound(name, 1, b, k, untied)
+    print(f"bound: K1 {untied} of {k * (b * b - b) // 2} unordered pairs untied; "
+          f"K1 {out['kendall_pair_sums']['bound_ms']:.6f} ms "
+          f"({out['kendall_pair_sums']['bound_by']}), K2 "
+          f"{out['kendall_grad_rows']['bound_ms']:.6f} ms "
+          f"({out['kendall_grad_rows']['bound_by']})")
+    step = out["kendall_pair_sums"]["device_ms"] + out["kendall_grad_rows"]["device_ms"]
+    print(f"Kendall device time of one training step (K1 with rows + K2): {step:.5f} ms")
+    for t in (8, 32):                     # stacked trials: the pair work grows with T
+        d, s, g = make_pair(torch, np, 8, t, 1024)
+        _, _, w, _, pos, neg = kc.pair_sums(d, s, True, rows=True)
+        k1 = graph_ms(torch, lambda: kc.pair_sums(d, s, True, rows=True))
+        k2 = graph_ms(torch, lambda: kc.grad_rows(pos, neg, w, g))
+        print(f"time T={t} B=1024 K=5 device ms: K1 {k1:.5f} ({k1 / t:.5f} a trial), "
+              f"K2 {k2:.5f}")
     return out
 
 
@@ -442,8 +544,9 @@ def main() -> int:
     n_train, n_val, _ = split_sizes(n_rows, (cfg.train_ratio, cfg.validation_ratio,
                                              cfg.test_ratio))
     n_full, trailing = divmod(n_train, cfg.batch_size)
-    errs = check_kernels(torch, np, kc, tk, {cfg.batch_size, trailing, n_val, 300, 100})
-    times = time_kernels(torch, np, kc)
+    errs = check_kernels(torch, np, kc, tk, {cfg.batch_size, trailing, n_val, 300, 100, 33, 2})
+    check_graph(torch, np, kc)
+    times = time_kernels(torch, np, kc, cfg.batch_size, cfg.n_aux)
 
     # ---- 3. main path -------------------------------------------------- #
     n_batch = n_full + (trailing > 0)
@@ -461,6 +564,8 @@ def main() -> int:
         metrics = trainer.train()
         launches = {"kendall_pair_sums": kc.fwd_launches,
                     "kendall_grad_rows": kc.bwd_launches}
+        torch.cuda.synchronize()
+        assert_tickets_clear(kc, "after training")
         with open(os.path.join(tmp, "losses.csv")) as f:
             header = f.readline().strip().split(",")
     assert header[0] == "Epoch" and len(header) == 13, header
@@ -490,15 +595,14 @@ def main() -> int:
 
     rows = []
     for name, line in (("kendall_pair_sums", 49), ("kendall_grad_rows", 91)):
-        b_ms, b_by = bound(name, 1, cfg.batch_size, cfg.n_aux)
         rows.append({
             "name": name, "route": "cuda",
             "source": "rankaae_tpu_torch/csrc/kendall.cu",
             "replaces": f"rankaae_tpu/ops/kendall_pallas.py:{line}",
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "device_ms": times[name]["device_ms"],
+            "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
+            "library_ms": None, "device_ms": times[name]["device_ms"],
         })
     k3 = k3_times[(4, 1024)]
     rows.append({

@@ -2,10 +2,13 @@
 one ``torch.autograd.Function`` (counterpart of
 ``rankaae_tpu/ops/kendall_pallas.py``).
 
-* :func:`pair_sums` — K1 (``csrc/kendall.cu::pair_sums_kernel`` and its
-  finishing pass), replacing ``_fwd_kernel`` via ``_pair_sums_pallas``.
-* :func:`grad_rows` — K2 (``csrc/kendall.cu::grad_rows_kernel``), replacing
-  ``_bwd_kernel`` via ``_grad_rows_pallas``.
+* :func:`pair_sums` — K1 (``csrc/kendall.cu::pair_sums_kernel``, one launch
+  a call), replacing ``_fwd_kernel`` via ``_pair_sums_pallas``: the pair sums,
+  counts, activation weights and loss, and on request the integer row sums
+  P and N that the gradient needs.
+* :func:`grad_rows` — K2 (``csrc/kendall.cu::grad_rows_kernel``, one launch
+  a call), replacing ``_bwd_kernel`` via ``_grad_rows_pallas``: the styles
+  gradient from P, N, w and g, elementwise (it evaluates no pairs).
 * :func:`kendall_constraint` — the dispatch that replaces
   ``kendall_constraint_pallas`` (custom VJP) and ``kendall_constraint_auto``:
   a CUDA tensor always goes to the kernel pair, for every batch size (the
@@ -14,10 +17,11 @@ one ``torch.autograd.Function`` (counterpart of
   is no fallback from the kernels to the plain version: a kernel that does
   not build or launch raises.
 
-Each wrapper takes (T, B, K) float32 contiguous tensors (T trials stacked),
-checks them, and on a CPU tensor computes its kernel's plain version (for
-the tests; ``chip_smoke.py`` holds the kernels against the same functions on
-the card).  ``fwd_launches``/``bwd_launches`` count the kernel launches.
+Each wrapper checks its tensors and on a CPU tensor computes its kernel's
+plain version (for the tests; ``chip_smoke.py`` holds the kernels against the
+same functions on the card).  On a CUDA tensor it makes one allocation, from
+which it carves every output and scratch buffer.  ``fwd_launches`` and
+``bwd_launches`` count the kernel launches.
 
 The shared library is built with ``nvcc`` on first use, from the source in
 this package, by ``ops/_nvcc.py`` and loaded with ``ctypes``.
@@ -25,7 +29,7 @@ this package, by ``ops/_nvcc.py`` and loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,31 +37,49 @@ from rankaae_tpu_torch.ops import _nvcc
 from rankaae_tpu_torch.ops import kendall as plain
 
 SOURCE = _nvcc.CSRC / "kendall.cu"
+MAX_T = 65535          # trials: the grid's z extent, and one ticket word each
 MAX_B = 46340          # B * B must fit in int32 (the per-block pair counts)
+MAX_K = 32             # kMaxK in kendall.cu
+SLOT_WORDS = 4         # kendall.cu's Slot: [pos, neg] sums and counts, 16 bytes
 
 #: kernel launches made through the wrappers (plain-version calls not counted)
 fwd_launches = 0
 bwd_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
+_tile_rows = 0
+#: K1's per-trial tickets: one zeroed buffer per (CUDA device, raw stream
+#: handle), allocated by the first call on that stream (the kernel leaves
+#: every ticket at 0), so calls on two streams never share a ticket
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/kendall.cu`` (once per source version) and load it."""
-    global _lib
+    """Compile ``csrc/kendall.cu`` (once per source version), load it and
+    read its constants."""
+    global _lib, _tile_rows
     if _lib is not None:
         return _lib
     lib = _nvcc.load(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.kendall_pair_sums.argtypes = [p, p, i, i, i, i, f, p, p, p, p, p, p, p]
+    lib.kendall_pair_sums.argtypes = [p, p, i, i, i, i, f, p, p, p, p, p, p, p, p]
     lib.kendall_pair_sums.restype = i
     lib.kendall_grad_rows.argtypes = [p, p, p, p, i, i, i, f, p, p]
     lib.kendall_grad_rows.restype = i
     lib.kendall_tile_rows.restype = i
     lib.kendall_error_string.argtypes = [i]
     lib.kendall_error_string.restype = ctypes.c_char_p
+    _tile_rows = lib.kendall_tile_rows()
     _lib = lib
     return lib
+
+
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() \
+            or x.device != device:
+        raise ValueError(f"{name} must be a contiguous {dtype} {shape} tensor on {device}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def _check_pair(descriptors: torch.Tensor, styles: torch.Tensor) -> Tuple[int, int, int]:
@@ -76,10 +98,14 @@ def _check_pair(descriptors: torch.Tensor, styles: torch.Tensor) -> Tuple[int, i
     if styles.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {styles.device}")
     t, b, k = styles.shape
-    if not (1 <= t <= 65535 and 2 <= b <= MAX_B and 1 <= k <= 32):   # kMaxK in kendall.cu
-        raise ValueError(f"need 1 <= T <= 65535, 2 <= B <= {MAX_B}, 1 <= K <= 32; "
-                         f"got {(t, b, k)}")
+    _check_sizes(t, b, k)
     return t, b, k
+
+
+def _check_sizes(t: int, b: int, k: int) -> None:
+    if not (1 <= t <= MAX_T and 2 <= b <= MAX_B and 1 <= k <= MAX_K):
+        raise ValueError(f"need 1 <= T <= {MAX_T}, 2 <= B <= {MAX_B}, 1 <= K <= {MAX_K}; "
+                         f"got {(t, b, k)}")
 
 
 def _norm(b: int, k: int) -> float:
@@ -92,12 +118,25 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 
 # --------------------------------------------------------------------------- #
-# K1: pair sums
+# K1: pair sums (and the row sums)
 # --------------------------------------------------------------------------- #
 
-def pair_sums_plain(descriptors, styles, activate: bool):
+def _row_sums_plain(descriptors, styles):
+    """Plain version of K1's row sums: P[t,a,k] = sum over j with p_aj > 0
+    of tgt_aj and N[t,a,k] = the sum over the other j, int32 (T, B, K)."""
+    target = torch.sign(descriptors[:, :, None, :] - descriptors[:, None, :, :])
+    p = (styles[:, :, None, :] - styles[:, None, :, :]) * target
+    tgt = target.to(torch.int32)
+    zero = torch.zeros_like(tgt)
+    pos = p > 0
+    return (torch.where(pos, tgt, zero).sum(dim=2, dtype=torch.int32),
+            torch.where(pos, zero, tgt).sum(dim=2, dtype=torch.int32))
+
+
+def pair_sums_plain(descriptors, styles, activate: bool, rows: bool = False):
     """Plain version of K1: (sums (T,K,2) [pos, neg], cnts (T,K,2) int32,
-    w (T,K), loss (T,))."""
+    w (T,K), loss (T,)), and with ``rows`` also P and N (see
+    :func:`_row_sums_plain`)."""
     _, b, k = styles.shape
     sum_pos, sum_neg, _, cnt_pos, cnt_neg = plain._pair_stats(descriptors, styles)
     if activate:
@@ -107,31 +146,55 @@ def pair_sums_plain(descriptors, styles, activate: bool):
     loss = -(w * sum_pos + sum_neg).sum(dim=-1) / _norm(b, k)
     sums = torch.stack([sum_pos, sum_neg], dim=-1)
     cnts = torch.stack([cnt_pos, cnt_neg], dim=-1).to(torch.int32)
+    if rows:
+        return (sums, cnts, w, loss, *_row_sums_plain(descriptors, styles))
     return sums, cnts, w, loss
 
 
-def pair_sums(descriptors, styles, activate: bool):
-    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
+def _tickets_on(device: torch.device, stream: int) -> torch.Tensor:
+    tickets = _tickets.get((device.index, stream))
+    if tickets is None:
+        tickets = _tickets[(device.index, stream)] = torch.zeros(MAX_T, dtype=torch.int32,
+                                                                device=device)
+    return tickets
+
+
+def pair_sums(descriptors, styles, activate: bool, rows: bool = False):
+    """K1 on a CUDA tensor, its plain version on a CPU tensor.  Returns
+    (sums, cnts, w, loss), and with ``rows`` also the row sums P and N."""
     global fwd_launches
     t, b, k = _check_pair(descriptors, styles)
     if styles.device.type == "cpu":
-        return pair_sums_plain(descriptors, styles, activate)
+        return pair_sums_plain(descriptors, styles, activate, rows)
     lib = build()
     dev = styles.device
-    n_tiles = -(-b // lib.kendall_tile_rows())
-    part_sum = torch.empty((t, k, n_tiles, 2), dtype=torch.float32, device=dev)
-    part_cnt = torch.empty((t, k, n_tiles, 2), dtype=torch.int32, device=dev)
-    sums = torch.empty((t, k, 2), dtype=torch.float32, device=dev)
-    cnts = torch.empty((t, k, 2), dtype=torch.int32, device=dev)
-    w = torch.empty((t, k), dtype=torch.float32, device=dev)
-    loss = torch.empty((t,), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # one buffer of 32-bit words: loss (T,), w (T, K), sums (T, K, 2), then
+    # the int32 cnts (T, K, 2) and, with rows, P and N (T, B, K) each, then
+    # the slots (T, K, n_tiles) of 16 bytes (scratch, never viewed)
+    tk = t * k
+    n_rows = t * b * k if rows else 0
+    o_cnts = t + 3 * tk
+    o_slots = -(-(o_cnts + 2 * tk + 2 * n_rows) // SLOT_WORDS) * SLOT_WORDS
+    buf = torch.empty(o_slots + tk * -(-b // _tile_rows) * SLOT_WORDS, dtype=torch.float32,
+                      device=dev)
+    ints = buf.view(torch.int32)
+    loss = buf.as_strided((t,), (1,), 0)
+    w = buf.as_strided((t, k), (k, 1), t)
+    sums = buf.as_strided((t, k, 2), (2 * k, 2, 1), t + tk)
+    cnts = ints.as_strided((t, k, 2), (2 * k, 2, 1), o_cnts)
+    base = buf.data_ptr()
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     rc = lib.kendall_pair_sums(
         descriptors.data_ptr(), styles.data_ptr(), t, b, k, int(bool(activate)),
-        _norm(b, k), part_sum.data_ptr(), part_cnt.data_ptr(), sums.data_ptr(),
-        cnts.data_ptr(), w.data_ptr(), loss.data_ptr(), stream)
+        _norm(b, k), _tickets_on(dev, stream).data_ptr(), base + 4 * o_slots,
+        sums.data_ptr(), cnts.data_ptr(), w.data_ptr(), base,
+        base + 4 * (o_cnts + 2 * tk) if rows else None, stream)
     _raise_on(lib, rc, "kendall_pair_sums")
     fwd_launches += 1
+    if rows:
+        o_pos = o_cnts + 2 * tk
+        return (sums, cnts, w, loss, ints.as_strided((t, b, k), (b * k, k, 1), o_pos),
+                ints.as_strided((t, b, k), (b * k, k, 1), o_pos + n_rows))
     return sums, cnts, w, loss
 
 
@@ -139,35 +202,36 @@ def pair_sums(descriptors, styles, activate: bool):
 # K2: gradient rows
 # --------------------------------------------------------------------------- #
 
-def grad_rows_plain(descriptors, styles, w, g):
-    """Plain version of K2: d loss_t / d styles[t] given the incoming
-    gradient g (T,) of each trial's loss, as (T, B, K)."""
-    _, b, k = styles.shape
-    target = torch.sign(descriptors[:, :, None, :] - descriptors[:, None, :, :])
-    p = (styles[:, :, None, :] - styles[:, None, :, :]) * target
-    w_eff_t = torch.where(p > 0, w[:, None, None, :] * target, target)
-    rows = w_eff_t.sum(dim=2)
+def grad_rows_plain(pos_rows, neg_rows, w, g):
+    """Plain version of K2: d loss_t / d styles[t] given K1's row sums, its
+    weights and the incoming gradient g (T,) of each trial's loss, as
+    (T, B, K): -2 g_t / ((B^2 - B) K) * (w_k P + N)."""
+    _, b, k = pos_rows.shape
     scale = -2.0 * g / _norm(b, k)
-    return rows * scale[:, None, None]
+    return scale[:, None, None] * (w[:, None, :] * pos_rows.float() + neg_rows.float())
 
 
-def grad_rows(descriptors, styles, w, g):
+def grad_rows(pos_rows, neg_rows, w, g):
     """K2 on a CUDA tensor, its plain version on a CPU tensor."""
     global bwd_launches
-    t, b, k = _check_pair(descriptors, styles)
-    for name, x, shape in (("w", w, (t, k)), ("g", g, (t,))):
-        if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous() \
-                or x.device != styles.device:
-            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on "
-                             f"{styles.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if styles.device.type == "cpu":
-        return grad_rows_plain(descriptors, styles, w, g)
+    if pos_rows.dim() != 3:
+        raise ValueError(f"pos_rows must be (T, B, K), got shape {tuple(pos_rows.shape)}")
+    t, b, k = pos_rows.shape
+    dev = pos_rows.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    _check_sizes(t, b, k)
+    _check("pos_rows", pos_rows, torch.int32, (t, b, k), dev)
+    _check("neg_rows", neg_rows, torch.int32, (t, b, k), dev)
+    _check("w", w, torch.float32, (t, k), dev)
+    _check("g", g, torch.float32, (t,), dev)
+    if dev.type == "cpu":
+        return grad_rows_plain(pos_rows, neg_rows, w, g)
     lib = build()
-    grad = torch.empty_like(styles)
-    stream = torch.cuda.current_stream(styles.device).cuda_stream
+    grad = torch.empty((t, b, k), dtype=torch.float32, device=dev)
     rc = lib.kendall_grad_rows(
-        descriptors.data_ptr(), styles.data_ptr(), w.data_ptr(), g.data_ptr(),
-        t, b, k, _norm(b, k), grad.data_ptr(), stream)
+        pos_rows.data_ptr(), neg_rows.data_ptr(), w.data_ptr(), g.data_ptr(), t, b, k,
+        _norm(b, k), grad.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index))
     _raise_on(lib, rc, "kendall_grad_rows")
     bwd_launches += 1
     return grad
@@ -178,20 +242,29 @@ def grad_rows(descriptors, styles, w, g):
 # --------------------------------------------------------------------------- #
 
 class KendallFunction(torch.autograd.Function):
-    """Loss per trial (T,) from K1; the styles gradient from K2.  The
-    descriptors get no gradient (they are constants)."""
+    """Loss per trial (T,) from K1; the styles gradient from K2, given the
+    row sums K1 wrote in the same pass.  The descriptors get no gradient
+    (they are constants).  K1 computes the row sums only when a gradient
+    will be asked for: grad mode on and styles requiring grad (``apply``
+    decides, since ``forward`` always runs with grad mode off)."""
+
+    @classmethod
+    def apply(cls, descriptors, styles, activate):
+        rows = torch.is_grad_enabled() and styles.requires_grad
+        return super().apply(descriptors, styles, activate, rows)
 
     @staticmethod
-    def forward(ctx, descriptors, styles, activate):
-        _, _, w, loss = pair_sums(descriptors, styles, activate)
-        ctx.save_for_backward(descriptors, styles, w)
+    def forward(ctx, descriptors, styles, activate, rows):
+        if not rows:
+            return pair_sums(descriptors, styles, activate)[3]
+        _, _, w, loss, pos_rows, neg_rows = pair_sums(descriptors, styles, activate, rows=True)
+        ctx.save_for_backward(pos_rows, neg_rows, w)
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        descriptors, styles, w = ctx.saved_tensors
-        grad = grad_rows(descriptors, styles, w, g.float().contiguous())
-        return None, grad.to(styles.dtype), None
+        pos_rows, neg_rows, w = ctx.saved_tensors
+        return None, grad_rows(pos_rows, neg_rows, w, g.float().contiguous()), None, None
 
 
 def kendall_constraint(descriptors, styles, activate: bool = False):
