@@ -7,6 +7,8 @@ Phases (any failure exits non-zero and prints no result):
 
 1. build — compile ``rankaae_tpu_torch/csrc/kendall.cu`` and
    ``csrc/fused_block.cu`` with nvcc, one process per source, in parallel;
+   print each kernel's registers and spills from the ptxas report, and fail
+   if any kernel spills;
 2. kernels — hold the Kendall kernels K1 (pair sums, with and without the
    row sums P and N) and K2 (the gradient from P, N, w and g) against their
    plain PyTorch versions on the card, over the batch sizes the main path
@@ -23,7 +25,15 @@ Phases (any failure exits non-zero and prints no result):
    Kendall loss of the run went through the kernels;
 4. parity — one faithful training batch on the card against the same batch
    on the CPU (same weights, same draws), at the config's widths and batch
-   size with the depth cut to 3 layers.
+   size with the depth cut to 3 layers;
+5. K3 — the fused EncodingBlock kernel against its plain version, C in
+   {4, 2} x B in ``K3_BATCHES`` and twice one wave of its persistent grid
+   + 5; bit-identical over three calls and a CUDA graph replay equal to the
+   eager call; then wrapper, device and plain times and the bound at
+   ``K3_TIMED``;
+6. serving — the normal form served by the CLI from a seeded bundle (28 K3
+   launches, card vs CPU), then device-resident throughput of the normal
+   and compact forms and transfer-inclusive throughput of the normal form.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
@@ -40,6 +50,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -70,6 +81,10 @@ LOSS_RTOL, LOSS_ATOL, GRAD_ATOL, PARITY_ATOL = 1e-5, 1e-7, 1e-6, 1e-4
 LEAF_ATOL, LEAF_RTOL = 1e-3, 1e-3
 EPOCHS = 3
 K3_RTOL, RECON_ATOL, SERVE_ATOL = 1e-5, 1e-5, 1e-4
+K3_BATCHES = (1, 2, 31, 33, 77, 129, 1023, 1024, 4096)
+# (C, B): the serving shape of the 4-channel blocks, and the 4096 rounds of
+# device_benchmark's normal form (its 4- and 2-channel blocks)
+K3_TIMED = ((4, 1024), (4, 4096), (2, 1024), (2, 4096))
 BENCH_B, BENCH_ITERS = 4096, 50
 
 
@@ -170,31 +185,21 @@ def k3_bound(b, c, fb):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def k3_inputs(torch, np, fb, b, c, seed):
-    """The probe's ``make_inputs`` (normal * 0.3, variances |.| + 0.5, PReLU
-    slopes 0.01) in the wrapper's argument order and the port's layouts."""
-    rng = np.random.default_rng(seed)
+def check_k3(torch, fb):
+    """Phase 5: K3 against its plain version over channel counts and batch
+    sizes (the ragged edges of the warp-per-sample tiling and, past one wave
+    of the persistent grid, of its loop), bit-identical over three calls,
+    and replayed exactly from a CUDA graph; then its times.  Inputs are
+    drawn as the probe's ``make_inputs`` draws them.  Returns the max error
+    at the serving shape (C 4, B 1024) and the times."""
+    from rankaae_tpu_torch.tools.time_fused_block import inputs
 
-    def f32(*shape):
-        return torch.tensor(rng.normal(size=shape).astype(np.float32) * 0.3, device="cuda")
-
-    def slope():
-        return torch.full((c,), 0.01, device="cuda")
-
-    x = f32(b, c, fb.L)
-    args = (f32(c), f32(c).abs() + 0.5, f32(c, c, fb.K), f32(c), slope(),
-            f32(c), f32(c).abs() + 0.5, f32(c, c, fb.K), f32(c), slope(),
-            f32(fb.E, fb.L), f32(fb.E), slope(), f32(fb.L, fb.E), f32(fb.L), slope())
-    return x, args
-
-
-def check_k3(torch, np, fb):
-    """Phase 5: K3 against its plain version over batch sizes and channel
-    counts; returns the max error at the serving shape (C 4, B 1024)."""
     err_main = None
+    n_cases = 0
     for c in (4, 2):
-        for b in (1, 77, 1024, 4096):
-            x, args = k3_inputs(torch, np, fb, b, c, 100 * c + b)
+        wave = fb.wave(c)
+        for b in (*K3_BATCHES, 2 * wave + 5):
+            x, args = inputs(fb, b, c, 100 * c + b)
             y = fb.fused_block(x, *args)
             y_plain = fb.fused_block_plain(x, *args)
             err = (y - y_plain).abs().max().item()
@@ -202,19 +207,41 @@ def check_k3(torch, np, fb):
             assert err <= K3_RTOL * scale, (c, b, err, scale)
             if (c, b) == (4, 1024):
                 err_main = err
+            n_cases += 1
+        print(f"K3 C={c}: one wave of the persistent grid holds {wave} samples")
     torch.cuda.synchronize()
-    print(f"K3: 8 cases agree with the plain version (C in (4, 2), B in (1, 77, 1024, "
-          f"4096), max |kernel - plain| <= {K3_RTOL} * max |plain|); error at C 4, "
-          f"B 1024: {err_main:.3g}")
+    print(f"K3: {n_cases} cases agree with the plain version (C in (4, 2), B in "
+          f"{K3_BATCHES} and twice a wave + 5, max |kernel - plain| <= {K3_RTOL} * "
+          f"max |plain|); error at C 4, B 1024: {err_main:.3g}")
+    for c in (4, 2):
+        x, args = inputs(fb, 4096, c, 11)
+        eager = [fb.fused_block(x, *args) for _ in range(3)]
+        assert all(torch.equal(y, eager[0]) for y in eager[1:]), ("not bit-identical", c)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fb.fused_block(x, *args)                     # warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            y = fb.fused_block(x, *args)
+        for _ in range(2):
+            y.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(y, eager[0]), ("graph replay differs from the eager call", c)
+    print("K3: bit-identical over 3 calls and a CUDA graph replay equals the eager call "
+          "(C 4 and 2, B 4096)")
     times = {}
-    for c, b in ((4, 1024), (4, 4096), (2, 1024)):
-        x, args = k3_inputs(torch, np, fb, b, c, 7)
+    for c, b in K3_TIMED:
+        x, args = inputs(fb, b, c, 7)
         kernel = lambda: fb.fused_block(x, *args)          # noqa: E731
         plain = lambda: fb.fused_block_plain(x, *args)     # noqa: E731
         p1, k1, k2, p2 = (time_ms(torch, f) for f in (plain, kernel, kernel, plain))
         b_ms, b_by = k3_bound(b, c, fb)
         times[(c, b)] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                          "device_ms": graph_ms(torch, kernel), "bound_ms": b_ms, "bound_by": b_by}
+        times[(c, b)]["host_share_ms"] = times[(c, b)]["ms"] - times[(c, b)]["device_ms"]
         print(f"K3 time C={c} B={b}: " + json.dumps(times[(c, b)]))
     return err_main, times
 
@@ -534,8 +561,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     for source in (kc.SOURCE, fb.SOURCE):     # kept beside the library, built or cached
         for line in _nvcc.build_log(source).splitlines():
-            if "Used" in line or "spill" in line:
+            if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"  ptxas {source.name}: {line.strip()}")
+            if "spill" in line:                   # no kernel may spill registers
+                assert set(re.findall(r"(\d+) bytes spill", line)) == {"0"}, (source.name, line)
 
     # ---- 2. kernels against their plain versions ----------------------- #
     cfg_path = os.path.join(HERE, "example", "fix_config.yaml")
@@ -586,7 +615,7 @@ def main() -> int:
 
     # ---- 5. K3 against its plain version ------------------------------- #
     set_matmul_precision("highest")       # TF32 off for the plain version's convs
-    k3_err, k3_times = check_k3(torch, np, fb)
+    k3_err, k3_times = check_k3(torch, fb)
 
     # ---- 6. serving the conv forms -------------------------------------- #
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:

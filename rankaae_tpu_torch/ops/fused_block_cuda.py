@@ -19,6 +19,8 @@ requires grad).  ``launches`` counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
+import operator
+import struct
 from typing import Optional
 
 import torch
@@ -39,6 +41,8 @@ _lib: Optional[ctypes.CDLL] = None
 
 _ARGS = ("bn1_mean", "bn1_var", "w1", "b1", "a1", "bn2_mean", "bn2_var", "w2", "b2",
          "a2", "fc1_w", "fc1_b", "ae1", "fc2_w", "fc2_b", "ae2")
+#: the 16 parameter pointers packed in ``_ARGS`` order, as the kernel's Params
+_PARAMS = struct.Struct(f"{len(_ARGS)}P")
 
 
 def build() -> ctypes.CDLL:
@@ -48,18 +52,32 @@ def build() -> ctypes.CDLL:
         return _lib
     lib = _nvcc.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_block.argtypes = [p, i, i] + [p] * len(_ARGS) + [p, p]
+    lib.fused_block.argtypes = [p, i, i, ctypes.c_char_p, p, p]
     lib.fused_block.restype = i
     lib.fused_block_error_string.argtypes = [i]
     lib.fused_block_error_string.restype = ctypes.c_char_p
-    for name in ("fused_block_length", "fused_block_taps", "fused_block_excitation"):
+    lib.fused_block_wave.argtypes = [i]
+    for name in ("fused_block_wave", "fused_block_length", "fused_block_taps",
+                 "fused_block_excitation", "fused_block_params_bytes"):
         getattr(lib, name).restype = i
-    consts = (lib.fused_block_length(), lib.fused_block_taps(), lib.fused_block_excitation())
-    if consts != (L, K, E):
-        raise RuntimeError(f"{SOURCE.name} was built for (L, K, E) = {consts}, "
-                           f"this wrapper expects {(L, K, E)}")
+    consts = (lib.fused_block_length(), lib.fused_block_taps(), lib.fused_block_excitation(),
+              lib.fused_block_params_bytes())
+    if consts != (L, K, E, _PARAMS.size):
+        raise RuntimeError(f"{SOURCE.name} was built for (L, K, E, parameter bytes) = {consts}, "
+                           f"this wrapper expects {(L, K, E, _PARAMS.size)}")
     _lib = lib
     return lib
+
+
+def wave(c: int) -> int:
+    """Samples one wave of K3's persistent grid holds on the current CUDA
+    device (its resident blocks times the samples a block has in flight)."""
+    lib = build()
+    n = lib.fused_block_wave(c)
+    if n <= 0:
+        raise RuntimeError(f"fused_block_wave({c}) failed: "
+                           f"{lib.fused_block_error_string(-n).decode()}")
+    return n
 
 
 def _shapes(c: int) -> dict:
@@ -70,16 +88,35 @@ def _shapes(c: int) -> dict:
             "ae2": vec}
 
 
-def _check(x: torch.Tensor, tensors: dict) -> None:
+#: the parameters' shapes in argument order, per channel count
+_SHAPES = {c: tuple(_shapes(c).values()) for c in CHANNELS}
+_shape, _dtype, _device, _requires_grad = (
+    operator.attrgetter(a) for a in ("shape", "dtype", "device", "requires_grad"))
+_is_contiguous, _data_ptr = torch.Tensor.is_contiguous, torch.Tensor.data_ptr
+
+
+def _check(x: torch.Tensor, args: tuple) -> None:
+    """Raise unless ``x`` is (B >= 1, C in CHANNELS, L) on the CPU or a CUDA
+    device and ``x`` and the 16 parameters are contiguous float32 tensors of
+    their shapes on x's device.  One pass over the tensors per property;
+    only when one fails, :func:`_name_the_fault` finds the tensor to name."""
     if x.dim() != 3 or x.shape[1] not in CHANNELS or x.shape[2] != L or x.shape[0] < 1:
         raise ValueError(f"x must be (B >= 1, C in {CHANNELS}, {L}), got {tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
+    if not (x.is_cuda or x.is_cpu):
         raise ValueError(f"unsupported device {x.device}")
-    for name, shape in _shapes(x.shape[1]).items():
-        t = tensors[name]
+    tensors = (x, *args)
+    if not (tuple(map(_shape, args)) == _SHAPES[x.shape[1]]
+            and set(map(_dtype, tensors)) == {torch.float32}
+            and set(map(_device, tensors)) == {x.device}
+            and all(map(_is_contiguous, tensors))):
+        _name_the_fault(x, args)
+
+
+def _name_the_fault(x: torch.Tensor, args: tuple) -> None:
+    for name, shape, t in zip(_ARGS, _SHAPES[x.shape[1]], args):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    for name, t in (("x", x), *tensors.items()):
+    for name, t in zip(("x", *_ARGS), (x, *args)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != x.device:
@@ -114,17 +151,19 @@ def fused_block(x, bn1_mean, bn1_var, w1, b1, a1, bn2_mean, bn2_var, w2, b2, a2,
     global launches
     args = (bn1_mean, bn1_var, w1, b1, a1, bn2_mean, bn2_var, w2, b2, a2,
             fc1_w, fc1_b, ae1, fc2_w, fc2_b, ae2)
-    _check(x, dict(zip(_ARGS, args)))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *args)):
+    _check(x, args)
+    if torch.is_grad_enabled() and any(map(_requires_grad, (x, *args))):
         raise RuntimeError("fused_block has no backward: call it under torch.no_grad()")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return fused_block_plain(x, *args)
     lib = build()
+    x_ptr = x.data_ptr()
+    if x_ptr % 16:
+        raise ValueError("x must be 16-byte aligned (the kernel reads it as float4)")
     out = torch.empty_like(x)
     b, c, _ = x.shape
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.fused_block(x.data_ptr(), b, c, *(t.data_ptr() for t in args),
-                         out.data_ptr(), stream)
+    rc = lib.fused_block(x_ptr, b, c, _PARAMS.pack(*map(_data_ptr, args)), out.data_ptr(),
+                         torch._C._cuda_getCurrentRawStream(x.get_device()))
     if rc != 0:
         raise RuntimeError(f"fused_block launch failed: {lib.fused_block_error_string(rc).decode()}")
     launches += 1

@@ -10,9 +10,10 @@ the JAX package.
   the port's initialiser and carried to flax by the weight bridge; the
   running statistics are perturbed away from (0, 1).
 * ``fused_block_plain`` against the probe's ``reference_block`` and its
-  Pallas kernel ``fused_block(..., interpret=True)`` at B = 128 (relative
-  1e-5 of the output's largest magnitude).  The probe is loaded from
-  ``scripts/`` with importlib.
+  Pallas kernel ``fused_block(..., interpret=True)`` at B = 128 and C 4 and
+  2 (relative 1e-5 of the output's largest magnitude).  The probe is loaded
+  from ``scripts/`` with importlib, a copy per case, whose module constant
+  ``C`` the case sets.
 * An eval-mode block of K3's shape on the CPU computes ``fused_block_plain``
   exactly, which agrees with the block's own op-by-op path (atol 1e-5), and
   launches nothing; with grad enabled it raises, as K3 has no backward.
@@ -161,8 +162,10 @@ def _port_args(p):
             t["fc2w"].T.contiguous(), t["fc2b"], t["ae2"])
 
 
-def test_fused_block_plain_matches_probe_kernel():
+@pytest.mark.parametrize("c", (4, 2))
+def test_fused_block_plain_matches_probe_kernel(c):
     probe = _probe()
+    probe.C = c                     # this case's own copy of the probe module
     x, p = probe.make_inputs(128, seed=3)
     y_kernel = np.asarray(probe.fused_block(x, p, interpret=True))
     y_ref = np.asarray(jax.jit(probe.reference_block)(x, p))
@@ -220,3 +223,7 @@ def test_fused_block_checks_its_inputs():
         fb.fused_block(x[:, :3].contiguous(), *args)
     with pytest.raises(ValueError, match="contiguous"):
         fb.fused_block(x, *args[:10], args[10].T.contiguous().T, *args[11:])
+    with pytest.raises(ValueError, match="is on meta"):
+        fb.fused_block(x, *args[:3], args[3].to("meta"), *args[4:])
+    with pytest.raises(ValueError, match="unsupported device"):
+        fb.fused_block(x.to("meta"), *(a.to("meta") for a in args))
