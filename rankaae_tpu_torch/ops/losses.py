@@ -1,6 +1,11 @@
 """Loss library as plain functions of tensors (counterpart of
 ``rankaae_tpu/ops/losses.py:18-138``; behavioural spec: reference
-``sc/utils/functions.py:81-219``).  Every loss reduces in float32."""
+``sc/utils/functions.py:81-219``).  Every loss reduces in float32.
+
+The JAX package's key-taking helpers (``adversarial_loss``,
+``discriminator_loss``, ``generator_loss``, ``mutual_info_loss``) are not
+here: its trainer computes those losses inline, and so does this package's.
+"""
 from __future__ import annotations
 
 import math
@@ -20,6 +25,12 @@ def bce_with_logits(logits, targets):
     logits = logits.float()
     return torch.mean(torch.clamp(logits, min=0.0) - logits * targets
                       + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def nll_loss(log_probs, targets):
+    """Mean negative log-likelihood over integer class targets (torch
+    ``NLLLoss`` on log-probabilities, as ``DiscriminatorCNN`` emits them)."""
+    return -torch.mean(log_probs.float().gather(1, targets[:, None]))
 
 
 def recon_loss(spec_in, spec_out, scale: bool = False, scale_weight: float = 0.1):

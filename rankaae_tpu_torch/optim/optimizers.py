@@ -1,5 +1,5 @@
-"""Adam and AdamW with *runtime* learning rates (counterpart of
-``rankaae_tpu/optim/optimizers.py:35-101``).
+"""Adam, AdamW, RAdam and AdaBound with *runtime* learning rates
+(counterpart of ``rankaae_tpu/optim/optimizers.py:35-159``).
 
 The reference uses 7 independent torch optimizers over overlapping parameter
 subsets, each with its own lr = ratio * lr_base, driven by per-optimizer
@@ -11,6 +11,16 @@ JAX package's, not ``torch.optim``'s code:
 
 * Adam: L2 weight decay folded into the gradient before the moments.
 * AdamW: decoupled decay ``p -= lr * wd * p``.
+* RAdam (torch_optimizer's): variance rectification; the decay
+  ``p -= lr * wd * p`` applies before the rectified step.
+* AdaBound (torch_optimizer's): an Adam step whose per-element lr is
+  clipped to bounds that converge to ``final_lr``; the decay is added to
+  the gradient, and the bounds scale with ``lr / base_lr`` as the plateau
+  scheduler shrinks ``lr``.
+
+The scalars that depend only on the step count (bias corrections, RAdam's
+rectifier, AdaBound's bound factors) are computed on the host in float32,
+as the JAX package computes them on the device.
 
 Parameters are updated in place (under ``no_grad``); the moment buffers are
 updated in place too.
@@ -80,17 +90,65 @@ def make_adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
     return Optimizer(moment_init, update)
 
 
+def make_radam(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
+    f32 = np.float32
+    rho_inf = f32(2.0 / (1.0 - b2) - 1.0)
+    # a Python-float product in the JAX package, rounded once to float32
+    rho_den = f32((float(rho_inf) - 4.0) * (float(rho_inf) - 2.0))
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        bc1, bc2 = _adam_moments(grads, state, b1, b2)
+        t = f32(state.count)
+        beta2_t = f32(b2) ** t
+        rho_t = rho_inf - f32(2.0) * t * beta2_t / (f32(1.0) - beta2_t)
+        ratio = (rho_t - f32(4.0)) * (rho_t - f32(2.0)) * rho_inf / \
+            (rho_den * max(rho_t, f32(4.001)))
+        rect = float(np.sqrt(max(ratio, f32(0.0))))
+        use_rect = rho_t > 5.0
+        for p, m, v in zip(params, state.mu, state.nu):
+            if weight_decay:
+                p.sub_(lr * weight_decay * p)
+            mhat = m / bc1
+            step = rect * mhat / (torch.sqrt(v / bc2) + eps) if use_rect else mhat
+            p.sub_(lr * step)
+
+    return Optimizer(moment_init, update)
+
+
+def make_adabound(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
+                  final_lr=0.1, gamma=1e-3, base_lr=1e-3) -> Optimizer:
+    """torch_optimizer.AdaBound defaults; ``base_lr`` = the configured
+    initial lr."""
+    f32 = np.float32
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        if weight_decay:
+            grads = [g + weight_decay * p for g, p in zip(grads, params)]
+        bc1, bc2 = _adam_moments(grads, state, b1, b2)
+        t = f32(state.count)
+        flr = final_lr * lr / base_lr
+        lower = flr * float(f32(1.0) - f32(1.0) / (f32(gamma) * t + f32(1.0)))
+        upper = flr * float(f32(1.0) + f32(1.0) / (f32(gamma) * t))
+        step_size = lr * float(np.sqrt(f32(bc2))) / bc1
+        for p, m, v in zip(params, state.mu, state.nu):
+            eff = torch.minimum(torch.maximum(step_size / (torch.sqrt(v) + eps), lower), upper)
+            p.sub_(eff * m)
+
+    return Optimizer(moment_init, update)
+
+
 OPTIMIZERS: Dict[str, Callable[..., Optimizer]] = {
     "Adam": make_adam,
     "AdamW": make_adamw,
+    "RAdam": make_radam,
+    "AdaBound": make_adabound,
 }
 
 
 def make_optimizer(name: str, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
                    **kw) -> Optimizer:
-    if name in ("RAdam", "AdaBound"):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP queue 1, item 5)")
     if name not in OPTIMIZERS:
         raise ValueError(f"Unknown optimizer {name!r}; choose from {sorted(OPTIMIZERS)}")
     return OPTIMIZERS[name](b1=betas[0], b2=betas[1], eps=eps, weight_decay=weight_decay, **kw)

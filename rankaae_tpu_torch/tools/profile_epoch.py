@@ -1,14 +1,18 @@
-"""Where an epoch of the faithful main path spends its time on the card.
+"""Where an epoch of faithful training spends its time on the card.
 
-    python -m rankaae_tpu_torch.tools.profile_epoch [--warmup 2] [--out FILE]
+    python -m rankaae_tpu_torch.tools.profile_epoch [--config FILE]
+        [--ae-form {FC,normal,compact}] [--cnn-discriminator] [--warmup 2]
+        [--out FILE]
 
-Trains ``example/fix_config.yaml`` at full width on the 7,000-row synthetic
-dataset of ``example/make_data.py``, runs ``--warmup`` epochs, then profiles
-one epoch with ``torch.profiler`` (CPU + CUDA activities) and prints one JSON
-object: the epoch's wall time, the summed device time of its kernels (one
-stream, so the sum is the device's busy time), the idle share, kernel
-launches, and the kernels with the most device time, the Kendall kernels
-among them.  Needs a CUDA device.
+Trains ``--config`` (default ``example/fix_config.yaml``; ``--ae-form`` and
+``--cnn-discriminator`` override its form and discriminator) at full width
+on the 7,000-row synthetic dataset of ``example/make_data.py``, runs
+``--warmup`` epochs, then profiles one epoch with ``torch.profiler`` (CPU +
+CUDA activities) and prints one JSON object: the epoch's wall time, the
+summed device time of its kernels (one stream, so the sum is the device's
+busy time), the idle share, kernel launches, and the kernels with the most
+device time, the port's own kernels (Kendall, and the fused block in the
+validation decodes of the conv forms) among them.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import subprocess
 import tempfile
 import time
 from collections import defaultdict
+from typing import Optional
 
 import torch
 
@@ -29,7 +34,9 @@ from rankaae_tpu_torch.utils.config import Parameters
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def profile_epoch(warmup: int = 2, top: int = 15) -> dict:
+def profile_epoch(config: str = os.path.join(REPO, "example", "fix_config.yaml"),
+                  ae_form: Optional[str] = None, cnn_discriminator: bool = False,
+                  warmup: int = 2, top: int = 15) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_epoch needs a CUDA device")
     card = subprocess.run(
@@ -37,7 +44,11 @@ def profile_epoch(warmup: int = 2, top: int = 15) -> dict:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     with tempfile.TemporaryDirectory(prefix="profile_epoch_") as tmp:
         csv = make_synthetic_xanes_csv(os.path.join(tmp, "data.csv"), n_rows=7000, seed=0)
-        params = Parameters.from_yaml(os.path.join(REPO, "example", "fix_config.yaml"))
+        params = Parameters.from_yaml(config)
+        if ae_form is not None:
+            params.update({"ae_form": ae_form})
+        if cnn_discriminator:
+            params.update({"use_cnn_discriminator": True})
         trainer = Trainer.from_data(csv, config_parameters=params, device="cuda",
                                     work_dir=tmp, verbose=False)
     core, data = trainer.core, trainer.data
@@ -53,8 +64,10 @@ def profile_epoch(warmup: int = 2, top: int = 15) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    return {"card": card, "epoch": warmup, "n_train": core.n_train, "batches": core.n_batch,
-            **kernel_summary(prof, wall_ms, ("pair_sums", "grad_rows"), top)}
+    return {"card": card, "ae_form": core.cfg.ae_form,
+            "use_cnn_discriminator": core.cfg.use_cnn_discriminator, "epoch": warmup,
+            "n_train": core.n_train, "batches": core.n_batch,
+            **kernel_summary(prof, wall_ms, ("pair_sums", "grad_rows", "fused_block"), top)}
 
 
 def kernel_summary(prof, wall_ms: float, ours: tuple, top: int = 15) -> dict:
@@ -82,10 +95,15 @@ def kernel_summary(prof, wall_ms: float, ours: tuple, top: int = 15) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default=os.path.join(REPO, "example", "fix_config.yaml"))
+    ap.add_argument("--ae-form", default=None, choices=("FC", "normal", "compact"),
+                    help="override the config's ae_form")
+    ap.add_argument("--cnn-discriminator", action="store_true",
+                    help="train with DiscriminatorCNN")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
-    result = profile_epoch(args.warmup)
+    result = profile_epoch(args.config, args.ae_form, args.cnn_discriminator, args.warmup)
     line = json.dumps(result)
     print(line)
     if args.out:

@@ -5,10 +5,13 @@ The reference's public training API is
 ``Trainer.from_data(csv_fn, ..., config_parameters).train(callback)``
 (``sc/clustering/trainer.py:65,411-474``).  ``from_data`` loads the splits
 onto the device and builds the trainer; ``train`` runs every epoch, writes
-``losses.csv`` into ``work_dir`` and returns the final metrics list
-``[min shapiro-W, val recon MSE, avg train MI, max inter-style |rho|, val
-kendall]`` (``trainer.py:294-295``).  The model bundles (``final.mpk`` ...)
-are not written yet.
+``losses.csv`` and three model bundles into ``work_dir`` — ``final.mpk``
+(the last epoch's weights), ``best_tracked.mpk`` (min combined metric,
+extras ``best_epoch``/``best_combined``) and ``best_recon.mpk`` (min val
+recon MSE, extras ``best_recon_epoch``/``best_recon_mse``), each with its
+``.json`` manifest, in the JAX package's format — and returns the final
+metrics list ``[min shapiro-W, val recon MSE, avg train MI, max inter-style
+|rho|, val kendall]`` (``trainer.py:294-295``).
 
 ``device`` defaults to ``cuda:<igpu>``; with no CUDA device present,
 ``from_data`` raises unless the caller passes ``device="cpu"``.
@@ -25,9 +28,11 @@ import torch
 
 from rankaae_tpu_torch.data.dataset import load_split_arrays
 from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrainState, TrialData
+from rankaae_tpu_torch.utils.checkpoint import save_model_bundle
 from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
 from rankaae_tpu_torch.utils.device import resolve_device
 from rankaae_tpu_torch.utils.logging import write_losses_csv
+from rankaae_tpu_torch.utils.weights import to_jax
 
 
 class Trainer:
@@ -99,6 +104,18 @@ class Trainer:
 
         os.makedirs(self.work_dir, exist_ok=True)
         write_losses_csv(os.path.join(self.work_dir, "losses.csv"), self.logs)
+        cfg, models = core.cfg, core.models
+        save_model_bundle(os.path.join(self.work_dir, "final.mpk"), *to_jax(models), cfg)
+        save_model_bundle(
+            os.path.join(self.work_dir, "best_tracked.mpk"),
+            *to_jax(models, state.best_state), cfg,
+            extra={"best_epoch": int(state.best_epoch),
+                   "best_combined": float(state.best_combined)})
+        save_model_bundle(
+            os.path.join(self.work_dir, "best_recon.mpk"),
+            *to_jax(models, state.best_recon_state), cfg,
+            extra={"best_recon_epoch": int(state.best_recon_epoch),
+                   "best_recon_mse": float(state.best_recon)})
 
         metrics_all = self.logs["metrics"]
         if callback is not None:

@@ -18,10 +18,11 @@ quality metrics, the plateau schedulers, the best trackers — so the loop
 needs no host sync.  The Kendall loss goes through the CUDA kernel pair on
 the card (``ops/kendall_cuda.py``).
 
-Only the faithful protocol with gradient reversal, the FC form and the FC
-discriminator is ported; the conv forms and ``DiscriminatorCNN`` (which the
-registry builds for inference), the ``fused``/``joint`` protocols and the
-non-GRL GAN branch raise ``NotImplementedError``.
+The faithful protocol is ported for every form but ``qved`` (FC,
+``normal``, ``compact``), both discriminators, gradient reversal on or off
+(the non-GRL branch steps a D and a G optimizer) and the four optimizers.
+The ``fused``/``joint`` protocols, ``flat_optim``, bfloat16 activations and
+``qved`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from rankaae_tpu_torch.ops.losses import (
     alpha_schedule,
     bce_with_logits,
     mse,
+    nll_loss,
     recon_loss,
     smoothness_loss,
 )
@@ -108,17 +110,9 @@ class RankAAETrainer:
 
     def __init__(self, cfg: TrainConfig, n_train: int, n_val: int, device=None):
         cfg.validate()
-        if cfg.ae_form in ("normal", "compact") or cfg.use_cnn_discriminator:
-            raise NotImplementedError(
-                f"training ae_form {cfg.ae_form!r} (use_cnn_discriminator="
-                f"{cfg.use_cnn_discriminator}) is not ported yet: ROADMAP queue 1, "
-                "first item (train the conv forms)")
         if cfg.protocol != "faithful":
             raise NotImplementedError(
                 f"protocol {cfg.protocol!r} is not ported yet (ROADMAP queue 1, item 13)")
-        if not cfg.gradient_reversal:
-            raise NotImplementedError(
-                "the non-GRL GAN branch is not ported yet (ROADMAP queue 1, item 14)")
         if cfg.activation_dtype != "float32":
             raise NotImplementedError("activation_dtype bfloat16 is not ported yet")
         if cfg.flat_optim:
@@ -130,20 +124,24 @@ class RankAAETrainer:
         self.n_train = n_train
         self.n_val = n_val
         self.n_batch = -(-n_train // cfg.batch_size)
-        encoder, decoder = build_autoencoder(cfg)
+        encoder, decoder = build_autoencoder(cfg)      # raises for qved
         self.models: Dict[str, nn.Module] = {
             "enc": encoder.to(self.device),
             "dec": decoder.to(self.device),
             "dis": build_discriminator(cfg).to(self.device),
         }
         self.opts: Dict[str, Optimizer] = {}
-        for name, (_, _, beta_attr, explicit_wd) in OPT_SPECS.items():
+        for name, (_, ratio_attr, beta_attr, explicit_wd) in OPT_SPECS.items():
             betas = (0.9, 0.999)
             if beta_attr is not None:
                 b = getattr(cfg, beta_attr)
                 betas = (0.9 * b, 0.009 * b + 0.99)  # reference trainer.py:369,377,386
             wd = cfg.weight_decay if explicit_wd else DEFAULT_WD[cfg.optimizer_name]
-            self.opts[name] = make_optimizer(cfg.optimizer_name, betas=betas, weight_decay=wd)
+            kw = {}
+            if cfg.optimizer_name == "AdaBound":
+                kw["base_lr"] = getattr(cfg, ratio_attr) * cfg.lr_base
+            self.opts[name] = make_optimizer(cfg.optimizer_name, betas=betas,
+                                             weight_decay=wd, **kw)
 
     # ------------------------------------------------------------------ #
     # state
@@ -189,6 +187,17 @@ class RankAAETrainer:
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         self.opts[name].update(grads, state.opt[name], params, state.sched[name].lr)
 
+    def _label_loss(self, pred, label: int):
+        """The discriminator's loss on ``pred`` against one label for every
+        row: NLL on the CNN discriminator's 2-class log-probabilities, BCE
+        on the FC one's logit.  The discriminator's loss labels real 1 and
+        fake 0; the generator's labels its fakes 1 (the documented deviation
+        from the reference, which labels them 0; PARITY.md #4/#10)."""
+        if self.cfg.use_cnn_discriminator:
+            return nll_loss(pred, torch.full((pred.shape[0],), label, device=pred.device))
+        logit = pred.squeeze(-1)
+        return bce_with_logits(logit, torch.full_like(logit, float(label)))
+
     # ------------------------------------------------------------------ #
     # per-batch training protocol (reference trainer.py:103-204)
     # ------------------------------------------------------------------ #
@@ -197,27 +206,19 @@ class RankAAETrainer:
                      sampler: Optional[Sampler] = None):
         cfg = self.cfg
         sampler = state.sampler if sampler is None else sampler
-        enc, dec, dis = self.models["enc"], self.models["dec"], self.models["dis"]
+        enc, dec = self.models["enc"], self.models["dec"]
         for m in self.models.values():
             m.train()
 
         # input noise (trainer.py:112)
         spec_in = spec + sampler.normal("spec_noise", spec.shape) * cfg.spec_noise
 
-        # ---- adversarial step (GRL) ------------------------------------ #
         z_real = sampler.normal("z_real", (cfg.batch_size, cfg.nstyle))
-        styles = enc(spec_in, sampler)
-        with torch.no_grad():
-            # the reference's dead decode (trainer.py:113-114): stats only
-            dec(styles, sampler)
-        # FC discriminator is BN-free: one (B_real + B, nstyle) forward,
-        # the loss taken as two separately averaged halves
-        pred = dis(torch.cat([z_real, styles], dim=0), alpha, sampler)
-        real_p = pred[: cfg.batch_size].squeeze(-1)
-        fake_p = pred[cfg.batch_size:].squeeze(-1)
-        dis_loss = bce_with_logits(real_p, torch.ones_like(real_p)) + \
-            bce_with_logits(fake_p, torch.zeros_like(fake_p))
-        self._opt_step("adversarial", dis_loss, state)
+        if cfg.gradient_reversal:
+            dis_loss = self._adversarial_step(state, spec_in, z_real, alpha, sampler)
+            gen_loss = torch.zeros((), device=self.device)
+        else:
+            dis_loss, gen_loss = self._gan_steps(state, spec_in, z_real, sampler)
 
         # ---- kendall / correlation step (trainer.py:152-161) ----------- #
         styles = enc(spec_in, sampler)
@@ -251,12 +252,52 @@ class RankAAETrainer:
 
         return state, {
             "dis": dis_loss.detach(),
-            "gen": torch.zeros((), device=self.device),
+            "gen": gen_loss.detach(),
             "aux": aux_loss.detach(),
             "recon": rec_loss.detach(),
             "smooth": sm_loss.detach(),
             "mi": mi_loss.detach(),
         }
+
+    def _adversarial_step(self, state: TrainState, spec_in, z_real, alpha, sampler):
+        """The GRL step (``trainer.py:334-373`` in the JAX package): one
+        backward trains the discriminator and, reversed, the encoder."""
+        enc, dec, dis = self.models["enc"], self.models["dec"], self.models["dis"]
+        styles = enc(spec_in, sampler)
+        with torch.no_grad():
+            # the reference's dead decode (trainer.py:113-114): stats only
+            dec(styles, sampler)
+        if self.cfg.use_cnn_discriminator:
+            # BatchNorms inside: two sequential forwards, so each batch is
+            # normalised by its own statistics and the running statistics
+            # take the real batch, then the fake one (one concatenated
+            # forward would mix them)
+            real_pred = dis(z_real, alpha, sampler)
+            fake_pred = dis(styles, alpha, sampler)
+        else:
+            # the FC discriminator is BN-free: one (B_real + B, nstyle)
+            # forward, the loss taken as two separately averaged halves
+            pred = dis(torch.cat([z_real, styles], dim=0), alpha, sampler)
+            real_pred, fake_pred = pred[: z_real.shape[0]], pred[z_real.shape[0]:]
+        dis_loss = self._label_loss(real_pred, 1) + self._label_loss(fake_pred, 0)
+        self._opt_step("adversarial", dis_loss, state)
+        return dis_loss
+
+    def _gan_steps(self, state: TrainState, spec_in, z_real, sampler):
+        """The non-GRL branch (``trainer.py:374-423`` in the JAX package):
+        the side-effect encode and decode, a D step on the discriminator
+        optimizer, then a G step on the generator optimizer."""
+        enc, dec, dis = self.models["enc"], self.models["dec"], self.models["dis"]
+        with torch.no_grad():
+            dec(enc(spec_in, sampler), sampler)     # trainer.py:113-114: stats only
+            styles = enc(spec_in, sampler)
+        real_pred = dis(z_real, None, sampler)
+        fake_pred = dis(styles, None, sampler)
+        dis_loss = self._label_loss(real_pred, 1) + self._label_loss(fake_pred, 0)
+        self._opt_step("discriminator", dis_loss, state)
+        gen_loss = self._label_loss(dis(enc(spec_in, sampler), None, sampler), 1)
+        self._opt_step("generator", gen_loss, state)
+        return dis_loss, gen_loss
 
     # ------------------------------------------------------------------ #
     # validation (reference trainer.py:206-304)
@@ -290,13 +331,17 @@ class RankAAETrainer:
         z_sample = sampler.normal("z_val", (self.n_val, cfg.nstyle))
         mi_v = mse(enc(dec(z_sample)), z_sample)
 
-        z_real = sampler.normal("z_real_val", (cfg.batch_size, cfg.nstyle))
-        rp = dis(z_real, alpha).squeeze(-1)
-        fp = dis(z, alpha).squeeze(-1)
-        dis_v = bce_with_logits(rp, torch.ones_like(rp)) + \
-            bce_with_logits(fp, torch.zeros_like(fp))
+        # the prior draw: batch_size rows with GRL, n_val rows without
+        # (trainer.py:900-913 in the JAX package)
+        beta = alpha if cfg.gradient_reversal else None
+        n_real = cfg.batch_size if cfg.gradient_reversal else self.n_val
+        z_real = sampler.normal("z_real_val", (n_real, cfg.nstyle))
+        fp = dis(z, beta)
+        dis_v = self._label_loss(dis(z_real, beta), 1) + self._label_loss(fp, 0)
+        gen_v = torch.zeros((), device=self.device) if cfg.gradient_reversal \
+            else self._label_loss(fp, 1)
         return z, {"recon": recon_v, "aux": aux_v, "smooth": smooth_v,
-                   "mi": mi_v, "dis": dis_v, "gen": torch.zeros((), device=self.device),
+                   "mi": mi_v, "dis": dis_v, "gen": gen_v,
                    "gain": gain_v, "clamp_frac": clamp_frac_v}
 
     # ------------------------------------------------------------------ #
@@ -311,7 +356,8 @@ class RankAAETrainer:
 
     def epoch_step(self, state: TrainState, epoch: int, data: TrialData):
         cfg = self.cfg
-        alpha = alpha_schedule(epoch / cfg.max_epoch, cfg.alpha_flat_step, cfg.alpha_limit)
+        alpha = alpha_schedule(epoch / cfg.max_epoch, cfg.alpha_flat_step, cfg.alpha_limit) \
+            if cfg.gradient_reversal else 0.0
 
         # DataLoader shuffle + drop_last=False (dataloader.py:66-70): a
         # permutation sliced into full batches plus one smaller trailing batch

@@ -19,13 +19,15 @@ flax (numpy arrays)                      torch module, ``state_dict`` entry
 =======================================  ==========================================
 
 :func:`from_jax` decides by the flax leaf name, :func:`to_jax` by the torch
-module's type; neither looks at a leaf's rank.  ``num_batches_tracked`` has
-no flax counterpart: :func:`from_jax` sets it to 0 and :func:`to_jax` drops
-it (momentum is fixed, so torch never reads it).
+module's type; neither looks at a leaf's rank.  :func:`to_jax` reads the
+numbers from the modules or from ``state_dict`` snapshots of them.
+``num_batches_tracked`` has no flax counterpart: :func:`from_jax` sets it
+to 0 and :func:`to_jax` drops it (momentum is fixed, so torch never reads
+it).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,38 +72,47 @@ def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, Dict[str, torch
     return {m: _module_from_jax(params[m], batch_stats.get(m) or {}) for m in params}
 
 
-def _module_to_jax(module: nn.Module) -> Tuple[dict, dict]:
+def _module_to_jax(module: nn.Module, sd: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> Tuple[dict, dict]:
     params: dict = {}
     stats: dict = {}
+    sd = module.state_dict() if sd is None else sd
 
-    def put(tree, name, leaf, tensor):
+    def put(tree, name, leaf, attr, transpose=False):
+        tensor = sd[f"{name}.{attr}" if name else attr].detach()
         node = tree
         for part in name.split(".") if name else ():
             node = node.setdefault(part, {})
         # a copy: numpy() of a CPU tensor shares its memory, and a later
         # train-mode forward updates the running statistics in place
-        node[leaf] = np.array(tensor.detach().cpu().numpy(), order="C", copy=True)
+        node[leaf] = np.array((tensor.T if transpose else tensor).cpu().numpy(),
+                              order="C", copy=True)
 
     for name, m in module.named_modules():
         if isinstance(m, nn.Linear):
-            put(params, name, "kernel", m.weight.T)
-            put(params, name, "bias", m.bias)
+            put(params, name, "kernel", "weight", transpose=True)
+            put(params, name, "bias", "bias")
         elif isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
-            put(params, name, "weight", m.weight)
-            put(params, name, "bias", m.bias)
+            put(params, name, "weight", "weight")
+            put(params, name, "bias", "bias")
         elif isinstance(m, nn.PReLU):
-            put(params, name, "alpha", m.weight)
+            put(params, name, "alpha", "weight")
         elif isinstance(m, nn.BatchNorm1d):
-            put(stats, name, "mean", m.running_mean)
-            put(stats, name, "var", m.running_var)
+            put(stats, name, "mean", "running_mean")
+            put(stats, name, "var", "running_var")
     return params, stats
 
 
-def to_jax(models: Mapping[str, nn.Module]) -> Tuple[dict, dict]:
+def to_jax(models: Mapping[str, nn.Module],
+           state_dicts: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None
+           ) -> Tuple[dict, dict]:
     """Inverse of :func:`from_jax`: ``(params, batch_stats)`` of the given
     ``{role: module}`` as nested dicts of numpy arrays, in the JAX package's
-    layout."""
+    layout.  With ``state_dicts`` (``{role: state_dict}``, e.g. a snapshot
+    the best trackers keep) the numbers come from those, the layout from
+    the modules."""
     params, batch_stats = {}, {}
     for role, module in models.items():
-        params[role], batch_stats[role] = _module_to_jax(module)
+        sd = None if state_dicts is None else state_dicts[role]
+        params[role], batch_stats[role] = _module_to_jax(module, sd)
     return params, batch_stats
