@@ -46,7 +46,26 @@ Phases (any failure exits non-zero and prints no result):
    without GRL (1 epoch; the D and G optimizers both step), and RAdam and
    AdaBound (1 epoch each, compact); (c) one faithful batch of the normal
    form with the CNN discriminator at the config's batch size, card vs
-   CPU from the same weights and draws.
+   CPU from the same weights and draws;
+8. trials — (a) the main path of several trials: ``python -m
+   rankaae_tpu_torch.cli.train_sc`` (its ``main``) on ``example/
+   fix_config.yaml`` at full width with its ``trials: 8`` (only
+   ``max_epoch`` cut, 2000 -> 3) and phase 3's dataset; the whole artifact
+   tree (``main_process_message.txt``, every ``training/job_<i>/`` and every
+   file in it), every bundle reloaded, and K1 and K2 launched exactly as
+   often as in phase 3's one-trial run of the same epochs: one launch
+   carries all 8 trials; (b) trial independence on the card: trial 2 of a
+   4-trial run (at ``INDEPENDENCE_LR``) over 2 epochs against the 1-trial
+   run with seed + 2, from the same second moments of 1e-8 as phase 4,
+   beside the spread a 1e-7 weight perturbation makes; once at phase 4's
+   config (no draws but the permutations, spectrum noise and priors; both
+   again at ``CHAOTIC_LR``, not held) and once with the config's dropout
+   rates and discriminator noise as well, so that every per-trial draw of
+   the main path is held; (c)
+   steady-epoch spectra/s per GPU (T * n_train / epoch seconds) of
+   ``example/fix_config.yaml`` at T 1, 8 and 32, and the launches, device
+   time and idle share of a profiled epoch at T 1 and 32
+   (``tools/profile_epoch.py``).
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
@@ -62,7 +81,9 @@ serving card vs CPU atol 1e-4, and phase 7c the tolerances of
 ``CONV_BATCH_LOSS_ATOL`` and ``CONV_BATCH_LEAF_ATOL``: that batch is
 ill-conditioned, so they are twice the spread a 1e-7 weight perturbation
 shows on the CPU alone (``rankaae_tpu_torch/tools/batch_spread.py``), and
-phase 4's where that is larger.
+phase 4's where that is larger; phase 8b phase 4's tolerances, on the six
+training losses of both epochs and on every leaf, and every leaf within 1%
+of how far the weights moved.
 """
 from __future__ import annotations
 
@@ -496,21 +517,11 @@ def time_kernels(torch, np, kc, b, k):
         _, _, w, _, pos, neg = kc.pair_sums(d, s, True, rows=True)
         k1 = graph_ms(torch, lambda: kc.pair_sums(d, s, True, rows=True))
         k2 = graph_ms(torch, lambda: kc.grad_rows(pos, neg, w, g))
-        print(f"time T={t} B=1024 K=5 device ms: K1 {k1:.5f} ({k1 / t:.5f} a trial), "
-              f"K2 {k2:.5f}")
+        b1, by1 = bound("kendall_pair_sums", t, 1024, k, untied_pairs(d))
+        b2, by2 = bound("kendall_grad_rows", t, 1024, k, 0)
+        print(f"time T={t} B=1024 K=5 device ms: K1 {k1:.5f} ({k1 / t:.5f} a trial; bound "
+              f"{b1:.6f}, {by1}), K2 {k2:.5f} (bound {b2:.7f}, {by2})")
     return out
-
-
-class FixedDraws:
-    """Sampler stand-in that hands out the given arrays for the named draws."""
-
-    def __init__(self, torch, draws, device):
-        self.draws = {k: torch.tensor(v, device=device) for k, v in draws.items()}
-
-    def normal(self, name, shape):
-        x = self.draws.pop(name)
-        assert tuple(x.shape) == tuple(shape), (name, tuple(x.shape), tuple(shape))
-        return x
 
 
 def batch_parity(torch, np, cfg, loss_atol, leaf_atol, leaf_rtol=None):
@@ -523,7 +534,7 @@ def batch_parity(torch, np, cfg, loss_atol, leaf_atol, leaf_rtol=None):
     largest loss difference and the worst leaf differences."""
     from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes
     from rankaae_tpu_torch.train.trainer import RankAAETrainer
-    from rankaae_tpu_torch.utils.weights import from_jax, to_jax
+    from rankaae_tpu_torch.utils.sampler import FixedDraws
 
     b = cfg.batch_size
     aux, spec, _ = make_synthetic_xanes(n_rows=b, dim=cfg.dim_in, seed=11)
@@ -537,16 +548,16 @@ def batch_parity(torch, np, cfg, loss_atol, leaf_atol, leaf_rtol=None):
         tr = RankAAETrainer(cfg, n_train=b, n_val=b, device=dev)
         state = tr.init_state(0)
         if weights is None:
-            weights = from_jax(*to_jax(tr.models))
-        for k, m in tr.models.items():
-            m.load_state_dict(weights[k])
+            weights = {k: {n: v.detach().clone() for n, v in sd.items()}
+                       for k, sd in tr.trial_state_dicts(0).items()}
+        tr.load_trial_state_dicts(0, weights)
         for o in state.opt.values():      # non-zero second moments: see
             for v in o.nu:                # tests/torch_parity.py
                 v.fill_(1e-8)
         _, losses = tr._train_batch(
-            state, torch.tensor(spec.astype(np.float32), device=dev),
-            torch.tensor(aux.astype(np.float32), device=dev), 0.3, 0,
-            FixedDraws(torch, draws, dev))
+            state, torch.tensor(spec.astype(np.float32), device=dev)[None],
+            torch.tensor(aux.astype(np.float32), device=dev)[None], 0.3, 0,
+            FixedDraws({k: v[None] for k, v in draws.items()}, device=dev))
         params = {f"{k}.{n}" for k, m in tr.models.items() for n, _ in m.named_parameters()}
         results[dev] = ({k: v.item() for k, v in losses.items()},
                         {f"{k}.{n}": v.detach().cpu() for k, m in tr.models.items()
@@ -667,6 +678,172 @@ def train_conv(torch, np, kc, fb, cfg_path, tmp, card, n_batch):
     return launches
 
 
+# phase 8b: over two epochs phase 4's config is chaotic at its own learning
+# rate and still at 1e-5 (8b prints, at 1e-5 too, the spread that a 1e-7
+# relative perturbation of the weights makes on the card: larger than the
+# difference between the two runs, and than phase 4's tolerances); at
+# INDEPENDENCE_LR it is not, and the check means something.
+INDEPENDENCE_LR, CHAOTIC_LR = 1e-6, 1e-5
+JOB_FILES = ("messages.txt", "losses.csv", "final.mpk", "final.mpk.json", "best_tracked.mpk",
+             "best_tracked.mpk.json", "best_recon.mpk", "best_recon.mpk.json")
+THROUGHPUT_TRIALS = (1, 8, 32)
+
+
+def train_trials(torch, np, kc, cfg_path, tmp, card, expect):
+    """Phase 8a: ``train_sc`` on the card with the config's trials, the
+    artifact tree and its bundles; returns the Kendall launches, which must
+    equal ``expect`` (phase 3's one-trial run of the same epochs)."""
+    import yaml
+
+    from rankaae_tpu_torch.cli import train_sc
+    from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes_csv
+    from rankaae_tpu_torch.models.inference import InferenceModel
+    from rankaae_tpu_torch.utils.checkpoint import load_model_bundle
+
+    with open(cfg_path) as f:
+        raw = yaml.safe_load(f)
+    make_synthetic_xanes_csv(os.path.join(tmp, raw["data_file"]), n_rows=7000, dim=256, seed=0)
+    raw["max_epoch"] = EPOCHS
+    with open(os.path.join(tmp, "cfg.yaml"), "w") as f:
+        yaml.safe_dump(raw, f)
+    trials = raw["trials"]
+    kc.fwd_launches = kc.bwd_launches = 0
+    t0 = time.perf_counter()
+    train_sc.main(["-c", "cfg.yaml", "-w", tmp])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"kendall_pair_sums": kc.fwd_launches, "kendall_grad_rows": kc.bwd_launches}
+    assert_tickets_clear(kc, "after train_sc")
+    assert launches == expect, (launches, expect)
+    assert os.path.isfile(os.path.join(tmp, "main_process_message.txt"))
+    jobs = sorted(os.listdir(os.path.join(tmp, "training")))
+    assert jobs == sorted(f"job_{i + 1}" for i in range(trials)), jobs
+    metrics = []
+    for job in jobs:
+        job_dir = os.path.join(tmp, "training", job)
+        files = set(os.listdir(job_dir))
+        assert files == set(JOB_FILES) | {"checkpoints"}, (job, files)
+        chk = os.listdir(os.path.join(job_dir, "checkpoints"))
+        assert len(chk) == 2 and all(re.fullmatch(r"epoch_\d{6}_loss_.+\.mpk(\.json)?", c)
+                                     for c in chk), chk
+        bundles = [os.path.join(job_dir, n) for n in JOB_FILES if n.endswith(".mpk")] + \
+            [os.path.join(job_dir, "checkpoints", c) for c in chk if c.endswith(".mpk")]
+        for path in bundles:
+            _, _, bcfg, extra = load_model_bundle(path)
+            assert bcfg.trials == trials and bcfg.ae_form == "FC", path
+        _, _, _, extra = load_model_bundle(os.path.join(job_dir, "final.mpk"))
+        metrics.append(extra["final_metrics"])
+        model = InferenceModel.from_bundle(os.path.join(job_dir, "final.mpk"), device="cpu")
+        z = model.encode(np.ones((4, 256), np.float32))
+        assert np.all(np.isfinite(z)), job
+        with open(os.path.join(job_dir, "losses.csv")) as f:
+            rows = f.read().splitlines()
+        assert rows[0].startswith("Epoch,") and len(rows) == 2, rows      # epoch 0 only
+    metrics = np.asarray(metrics)
+    assert np.all(np.isfinite(metrics)) and len({tuple(m) for m in metrics}) == trials
+    print(f"8a train_sc: {trials} trials of example/fix_config.yaml at full width, {EPOCHS} "
+          f"epochs, in {wall:.2f} s wall (data load, training, {trials * 4} bundles); tree "
+          f"and bundles checked; K1/K2 launches {launches} (expected {expect}: one launch "
+          f"carries all {trials} trials) [{card}]")
+    return launches
+
+
+TRAIN_LOSSES = ("train_dis", "train_gen", "train_aux", "train_recon", "train_smooth",
+                "train_mi")
+
+
+def trial_independence(torch, np, cfg, splits):
+    """Phase 8b: trial 2 of a 4-trial run against the 1-trial run with seed
+    + 2 on the card (2 epochs of ``cfg``, all from second moments of 1e-8),
+    and, for scale, that 1-trial run against itself with its weights
+    perturbed by 1e-7 relative.  Returns the largest differences of each
+    comparison: training losses, validation logs, leaves, worst relative
+    norm and the leaf that has it, and how far the weights moved."""
+    from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+
+    data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
+    runs = []
+    for trials, seed, perturb in ((4, 10, False), (1, 12, False), (1, 12, True)):
+        tr = RankAAETrainer(cfg, n_train=len(splits[0]), n_val=len(splits[2]), trials=trials,
+                            device="cuda")
+        state = tr.init_state(seed)
+        if perturb:
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            with torch.no_grad():
+                for m in tr.models.values():
+                    for p in m.parameters():
+                        p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen, device="cuda"))
+        for o in state.opt.values():
+            for v in o.nu:
+                v.fill_(1e-8)
+        if (trials, perturb) == (1, False):
+            start = {k: v.clone() for k, v in tr.trial_state_dicts(0)["enc"].items()}
+        logs = []
+        for epoch in range(2):
+            state, log = tr.epoch_step(state, epoch, data)
+            logs.append(log)
+        runs.append((tr, logs, 2 if trials == 4 else 0))
+    # how far the 1-trial run moved its encoder's parameters
+    moved = max((runs[1][0].trial_state_dicts(0)["enc"][k] - v).abs().max().item()
+                for k, v in start.items() if v.is_floating_point() and "running" not in k)
+
+    def compare(a, b):
+        (tr_a, logs_a, i), (tr_b, logs_b, j) = a, b
+        err = {"train": 0.0, "val": 0.0, "leaf": 0.0, "rel": 0.0, "rel_leaf": None}
+        for e in range(2):
+            for k in logs_b[e]:
+                if k != "epoch":
+                    d = (logs_a[e][k][i] - logs_b[e][k][j]).abs().max().item()
+                    kind = "train" if k in TRAIN_LOSSES else "val"
+                    err[kind] = max(err[kind], d)
+        got, ref = tr_a.trial_state_dicts(i), tr_b.trial_state_dicts(j)
+        for role in ref:
+            for name, r in ref[role].items():
+                if r.is_floating_point():
+                    d = (got[role][name] - r).abs()
+                    err["leaf"] = max(err["leaf"], d.max().item())
+                    rel = (d.norm() / r.norm()).item()
+                    if rel >= err["rel"]:
+                        err["rel"], err["rel_leaf"] = rel, f"{role}.{name}"
+        return err
+
+    err = compare(runs[0], runs[1])
+    err["moved"] = moved
+    return err, compare(runs[2], runs[1])
+
+
+def trial_throughput(torch, cfg, splits, card):
+    """Phase 8c: steady-epoch spectra/s per GPU at each T of
+    ``THROUGHPUT_TRIALS`` (3 epochs, the last two timed, each ending in a
+    device sync), then a profiled epoch at the smallest and largest T."""
+    from rankaae_tpu_torch.tools.profile_epoch import profile_epoch
+    from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+
+    data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
+    out = {}
+    for trials in THROUGHPUT_TRIALS:
+        tr = RankAAETrainer(cfg, n_train=len(splits[0]), n_val=len(splits[2]), trials=trials,
+                            device="cuda")
+        state = tr.init_state(0)
+        seconds = []
+        for epoch in range(EPOCHS):
+            t0 = time.perf_counter()
+            state, log = tr.epoch_step(state, epoch, data)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        assert torch.isfinite(log["metrics"]).all(), trials
+        steady = seconds[1:]
+        out[trials] = [trials * tr.n_train / sec for sec in steady]
+        print(f"8c T={trials}: epoch seconds {[round(x, 4) for x in seconds]}, steady "
+              f"spectra/s per GPU {[round(x, 1) for x in out[trials]]} "
+              f"({[round(x / trials, 1) for x in out[trials]]} a trial) [{card}]")
+    for trials in (THROUGHPUT_TRIALS[0], THROUGHPUT_TRIALS[-1]):
+        prof = profile_epoch(trials=trials)
+        prof.pop("top_kernels")
+        print(f"8c profile T={trials}: " + json.dumps(prof))
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -676,7 +853,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from rankaae_tpu_torch.data.dataset import split_sizes
+    from rankaae_tpu_torch.data.dataset import load_split_arrays, split_sizes
     from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes_csv
     from rankaae_tpu_torch.models.primitives import set_matmul_precision
     from rankaae_tpu_torch.ops import _nvcc
@@ -795,11 +972,47 @@ def main() -> int:
           f"{worst['params']:.3g}, stats {worst['stats']:.3g} (atol "
           f"{json.dumps(CONV_BATCH_LEAF_ATOL)}); 7c {time.perf_counter() - t0:.1f} s")
     print(f"phases 1-7: {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 8. several trials at once -------------------------------------- #
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trials_") as tmp:
+        trial_launches = train_trials(torch, np, kc, cfg_path, tmp, card, expect)
+    print(f"8a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        csv = make_synthetic_xanes_csv(os.path.join(tmp, "data.csv"), n_rows=n_rows,
+                                       dim=cfg.dim_in, seed=0)
+        sp = load_split_arrays(csv, (cfg.train_ratio, cfg.validation_ratio, cfg.test_ratio),
+                               cfg.n_aux)
+    splits = (sp["train"].spec, sp["train"].aux, sp["val"].spec, sp["val"].aux)
+    # phase 4's config, then with fix_config's dropout and discriminator noise
+    for what, icfg, rates in (("phase 4's config", pcfg, (INDEPENDENCE_LR, CHAOTIC_LR)),
+                              ("phase 4's config with the config's dropout and noise",
+                               cfg.replace(n_layers=3), (INDEPENDENCE_LR,))):
+        for lr in rates:
+            err, spread = trial_independence(torch, np, icfg.replace(lr_base=lr), splits)
+            print(f"8b lr_base {lr}: trial 2 of 4 (seed 10) vs the 1-trial run with seed 12, "
+                  f"{what}, 2 epochs on the card: " + json.dumps(err)
+                  + "; the 1-trial run against itself with its weights perturbed by 1e-7: "
+                  + json.dumps(spread))
+            if lr == INDEPENDENCE_LR:        # phase 4's tolerances, and far below the move
+                assert err["train"] <= PARITY_ATOL, (what, err, spread)
+                assert err["leaf"] <= LEAF_ATOL and err["rel"] <= LEAF_RTOL, (what, err, spread)
+                assert err["leaf"] <= 1e-2 * err["moved"], (what, err, spread)   # (stats too)
+    print(f"8b: held at lr_base {INDEPENDENCE_LR}, without and with dropout and "
+          f"discriminator noise (training losses atol {PARITY_ATOL}, leaves atol {LEAF_ATOL} "
+          f"and rtol {LEAF_RTOL}, and under 1% of the weights' move); "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trial_throughput(torch, cfg, splits, card)
+    print(f"8c: {time.perf_counter() - t0:.1f} s; phases 1-8: "
+          f"{time.perf_counter() - t_start:.1f} s")
+
     for name in ("kendall_pair_sums", "kendall_grad_rows"):
-        launches[name] += conv_launches[name]
+        launches[name] += conv_launches[name] + trial_launches[name]
     k3_launches += conv_launches["fused_block"] + conv_launches["fused_block_serve"]
     print(f"main-path launches: K1 {launches['kendall_pair_sums']}, K2 "
-          f"{launches['kendall_grad_rows']} (phases 3 and 7a training), K3 {k3_launches} "
+          f"{launches['kendall_grad_rows']} (phase 3, 7a and 8a training), K3 {k3_launches} "
           f"(phase 6 CLI, phase 7a training and CLI)")
 
     rows = []
@@ -825,7 +1038,7 @@ def main() -> int:
     print("library_ms: null — no single PyTorch call computes the Kendall pair sums "
           "or their gradient rows, nor the fused EncodingBlock (two convs, BNs, PReLUs, "
           "residual and excitation MLP); K3's row is at the serving shape C 4, B 1024; "
-          "launches are the main paths' (phases 3, 6 and 7a)")
+          "launches are the main paths' (phases 3, 6, 7a and 8a)")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,191 @@
+"""``train_sc``: train the config's trials and write their artifacts
+(counterpart of ``rankaae_tpu/cli/train_sc.py:38-281``).
+
+    python -m rankaae_tpu_torch.cli.train_sc -c cfg.yaml -w work_dir [--seed N]
+        [--lr-sweep LO,HI] [--device cuda|cpu] [--debug-nans] [--profile-dir DIR]
+
+Reads ``cfg.yaml`` (relative to the work dir) and its ``data_file``, trains
+``trials`` trials of it at once on one device (``parallel/trials.py``), and
+writes the JAX CLI's artifact tree:
+
+    work_dir/main_process_message.txt
+    work_dir/training/job_<i>/messages.txt, losses.csv,
+        final.mpk, best_tracked.mpk, best_recon.mpk (each with its .json),
+        checkpoints/epoch_<best epoch:06d>_loss_<best combined:07.6g>.mpk
+
+with the same manifest extras (``final_metrics``, ``lr_scale`` under a
+sweep, ``best_epoch``/``best_combined``, ``best_recon_epoch``/
+``best_recon_mse``).  The config's ``timeout`` (hours) is one SIGALRM
+around the whole run: the trials train together, so a per-trial deadline
+and a total one coincide.  ``--lr-sweep LO,HI`` gives trial i the learning
+rates scaled by ``geomspace(LO, HI, trials)[i]``.  ``--debug-nans`` turns
+on autograd's anomaly detection; ``--profile-dir`` writes a
+``torch.profiler`` trace of the run there.  ``--checkpoint-every``,
+``--resume``, ``bn_recalibrate: true`` and ``amp_recalibrate: true`` are not
+ported yet and raise ``NotImplementedError``.  ``--device`` defaults to
+``cuda``, and the command raises without a CUDA device unless it is
+``cpu``.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import signal
+import time
+
+import numpy as np
+import torch
+
+from rankaae_tpu_torch.data.dataset import load_split_arrays
+from rankaae_tpu_torch.parallel.trials import TrialResults, run_trials
+from rankaae_tpu_torch.train.trainer import TrialData
+from rankaae_tpu_torch.utils.checkpoint import save_model_bundle
+from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
+from rankaae_tpu_torch.utils.device import resolve_device
+from rankaae_tpu_torch.utils.logging import create_logger, write_losses_csv
+
+
+def _timeout_handler(signum, frame):
+    raise TimeoutError("Training Overtime!")
+
+
+def train_from_config(work_dir: str, params: Parameters, seed: int = 0,
+                      checkpoint_every=None, resume: bool = False, lr_scales=None,
+                      device=None) -> TrialResults:
+    """Train every trial of ``params`` and write the artifact tree into
+    ``work_dir``.  Returns the results."""
+    if checkpoint_every or resume:
+        raise NotImplementedError(
+            "--checkpoint-every and --resume are not ported yet (ROADMAP queue 1, item 4)")
+    cfg = TrainConfig.from_parameters(params)
+    for knob in ("bn_recalibrate", "amp_recalibrate"):
+        if getattr(cfg, knob):
+            raise NotImplementedError(
+                f"{knob}: true is not ported yet (ROADMAP queue 1, item 5)")
+    dev = resolve_device(device)
+    logger = create_logger(
+        "Main training:", os.path.join(work_dir, "main_process_message.txt"), append=True)
+    logger.info("START")
+
+    data_file = os.path.join(work_dir, params.get("data_file"))
+    splits = load_split_arrays(
+        data_file, (cfg.train_ratio, cfg.validation_ratio, cfg.test_ratio), cfg.n_aux)
+    data = TrialData(*(torch.from_numpy(a).to(dev) for a in (
+        splits["train"].spec, splits["train"].aux, splits["val"].spec, splits["val"].aux)))
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    logger.info(f"Running {cfg.trials} trial(s) on {dev} ({name})")
+
+    timeout_s = int(cfg.timeout * 3600)
+    alarm = timeout_s > 0 and hasattr(signal, "SIGALRM")
+    if alarm:
+        signal.signal(signal.SIGALRM, _timeout_handler)
+        signal.alarm(timeout_s)
+    start = time.time()
+    try:
+        results = run_trials(cfg, data, seed=seed, lr_scales=lr_scales, device=dev)
+    finally:
+        if alarm:
+            signal.alarm(0)
+    total = time.time() - start
+
+    for i in range(results.n_trials):
+        job_dir = os.path.join(work_dir, "training", f"job_{i + 1}")
+        os.makedirs(job_dir, exist_ok=True)
+        tr = results.trial(i)
+        job_logger = create_logger(f"subtraining_{i + 1}", os.path.join(job_dir, "messages.txt"))
+        job_logger.info(f"Training started for trial {i + 1}.")
+        sweep_extra = {}
+        if lr_scales is not None:
+            sweep_extra["lr_scale"] = float(lr_scales[i])
+            job_logger.info(f"lr_scale: {float(lr_scales[i]):.6g} (sweep over the trial axis)")
+        write_losses_csv(os.path.join(job_dir, "losses.csv"), tr["logs"])
+        save_model_bundle(
+            os.path.join(job_dir, "final.mpk"), tr["final_params"], tr["final_batch_stats"],
+            cfg, extra={"final_metrics": [float(x) for x in tr["final_metrics"]],
+                        **sweep_extra})
+        # the true best (min combined metric) and the best reconstruction
+        # (min val recon MSE), as in the JAX CLI
+        best_extra = {"best_epoch": tr["best_epoch"], "best_combined": tr["best_combined"],
+                      **sweep_extra}
+        save_model_bundle(os.path.join(job_dir, "best_tracked.mpk"), tr["best_params"],
+                          tr["best_batch_stats"], cfg, extra=best_extra)
+        save_model_bundle(
+            os.path.join(job_dir, "best_recon.mpk"), tr["best_recon_params"],
+            tr["best_recon_batch_stats"], cfg,
+            extra={"best_recon_epoch": tr["best_recon_epoch"],
+                   "best_recon_mse": tr["best_recon"], **sweep_extra})
+        # the reference's checkpoint-directory layout (trainer.py:77,300)
+        save_model_bundle(
+            os.path.join(job_dir, "checkpoints",
+                         f"epoch_{tr['best_epoch']:06d}_loss_{tr['best_combined']:07.6g}.mpk"),
+            tr["best_params"], tr["best_batch_stats"], cfg, extra=best_extra)
+        job_logger.info(list(np.round(tr["final_metrics"], 6)))
+        job_logger.info(
+            f"Training finished. Time used: {total:.2f}s (concurrent with all trials).\n\n")
+
+    per_trial = total / max(results.n_trials, 1)
+    logger.info(f"Time used for each trial: {per_trial:.2f} +/- 0.00s (lockstep).\n"
+                + " ".join([f"{per_trial:.2f}s"] * results.n_trials))
+    logger.info(f"Total time used: {total:.2f}s for {results.n_trials} trails "
+                f"({per_trial:.2f} each on average).")
+    logger.info("END\n\n")
+    return results
+
+
+@contextlib.contextmanager
+def _profile(profile_dir):
+    """A ``torch.profiler`` trace of the block into ``profile_dir``, or
+    nothing when it is None."""
+    if profile_dir is None:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir, "train_sc.trace.json"))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("-c", "--config", type=str, required=True,
+                        help="Config for training parameter in YAML format")
+    parser.add_argument("-w", "--work_dir", type=str, default=".",
+                        help="Working directory to write the output files")
+    parser.add_argument("--seed", type=int, default=0, help="Base seed: trial i gets seed + i")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda (default) or cpu; there is no silent fallback")
+    parser.add_argument("--debug-nans", action="store_true",
+                        help="Turn on autograd anomaly detection")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="Write a torch.profiler trace of the training run")
+    parser.add_argument("--checkpoint-every", type=int, default=None,
+                        help="Save resumable training state every N epochs (not ported yet)")
+    parser.add_argument("--resume", action="store_true",
+                        help="Resume from <work_dir>/train_state (not ported yet)")
+    parser.add_argument("--lr-sweep", type=str, default=None, metavar="LO,HI",
+                        help="Sweep the learning rates geometrically across the trials: "
+                             "trial i's are scaled by geomspace(LO, HI, trials)[i]")
+    args = parser.parse_args(argv)
+
+    work_dir = os.path.abspath(os.path.expanduser(args.work_dir))
+    if not os.path.isdir(work_dir):
+        raise FileNotFoundError(f"work dir {work_dir} does not exist")
+    params = Parameters.from_yaml(os.path.join(work_dir, args.config))
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    lr_scales = None
+    if args.lr_sweep:
+        lo, hi = (float(x) for x in args.lr_sweep.split(","))
+        lr_scales = np.geomspace(lo, hi, int(params.get("trials", 1))).astype(np.float32)
+    with _profile(args.profile_dir):
+        train_from_config(work_dir, params, seed=args.seed,
+                          checkpoint_every=args.checkpoint_every, resume=args.resume,
+                          lr_scales=lr_scales, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

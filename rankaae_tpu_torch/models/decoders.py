@@ -6,6 +6,7 @@ The last-layer activation is ReLU or Softplus(beta=2) per
 (``dblock{i}``, ``eblock{i}``, ``bn_out``, ``conv_out``).  The conv
 decoders end in stride-1 length-256 EncodingBlocks; in eval mode their
 c_in == c_out ones run as the K3 kernel on the card (``models/blocks.py``).
+``TrialFCDecoder`` is ``FCDecoder`` stacked on a leading trial axis.
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ from rankaae_tpu_torch.models.primitives import (
     BatchNorm,
     Conv1d,
     Dropout,
-    Linear,
-    PReLU,
+    TrialModule,
+    layers_of,
     softplus_beta,
 )
 
@@ -39,16 +40,17 @@ class FCDecoder(nn.Module):
                  last_layer_activation: str = "ReLu", n_layers: int = 3,
                  hidden_size: int = 64):
         super().__init__()
+        lin, prelu, bn = layers_of(self)
         self.n_layers = n_layers
         self.act = _last_act(last_layer_activation)
         width = nstyle
         for i in range(n_layers - 1):
-            self.add_module(f"lin{i}", Linear(width, hidden_size))
-            self.add_module(f"prelu{i}", PReLU(hidden_size))
-            self.add_module(f"bn{i}", BatchNorm(hidden_size))
+            self.add_module(f"lin{i}", lin(width, hidden_size))
+            self.add_module(f"prelu{i}", prelu(hidden_size))
+            self.add_module(f"bn{i}", bn(hidden_size))
             self.add_module(f"drop{i}", Dropout(dropout_rate))
             width = hidden_size
-        self.lin_out = Linear(width, dim_out)
+        self.lin_out = lin(width, dim_out)
 
     def forward(self, z, sampler=None):
         x = z
@@ -58,6 +60,10 @@ class FCDecoder(nn.Module):
             x = getattr(self, f"bn{i}")(x)
             x = getattr(self, f"drop{i}")(x, sampler)
         return self.act(self.lin_out(x))
+
+
+class TrialFCDecoder(TrialModule, FCDecoder):
+    """``trials`` independent FC decoders over (T, B, nstyle)."""
 
 
 class _ConvDecoder(nn.Module):

@@ -4,6 +4,8 @@
 
 Both add N(0, noise) to the input **in training mode only** and pass it
 through the GRL before the classifier.  ``beta=None`` skips the reversal.
+``TrialDiscriminatorFC`` is ``DiscriminatorFC`` stacked on a leading trial
+axis, with a per-trial ``beta`` of shape (T, 1, 1).
 """
 from __future__ import annotations
 
@@ -11,7 +13,15 @@ import torch
 from torch import nn
 
 from rankaae_tpu_torch.models.grl import grad_reverse
-from rankaae_tpu_torch.models.primitives import BatchNorm, Conv1d, Dropout, Linear, PReLU
+from rankaae_tpu_torch.models.primitives import (
+    BatchNorm,
+    Conv1d,
+    Dropout,
+    Linear,
+    PReLU,
+    TrialModule,
+    layers_of,
+)
 
 
 def _noise_and_reverse(module, x, beta, sampler):
@@ -28,15 +38,16 @@ class DiscriminatorFC(nn.Module):
     def __init__(self, nstyle: int = 5, hidden_size: int = 64, dropout_rate: float = 0.2,
                  noise: float = 0.1, layers: int = 3):
         super().__init__()
+        lin, prelu, _ = layers_of(self)
         self.layers = layers
         self.noise = float(noise)
         width = nstyle
         for i in range(layers - 1):
-            self.add_module(f"lin{i}", Linear(width, hidden_size))
-            self.add_module(f"prelu{i}", PReLU(hidden_size))
+            self.add_module(f"lin{i}", lin(width, hidden_size))
+            self.add_module(f"prelu{i}", prelu(hidden_size))
             self.add_module(f"drop{i}", Dropout(dropout_rate))
             width = hidden_size
-        self.lin_out = Linear(width, 1)
+        self.lin_out = lin(width, 1)
 
     def forward(self, x, beta=None, sampler=None):
         out = _noise_and_reverse(self, x, beta, sampler)
@@ -45,6 +56,10 @@ class DiscriminatorFC(nn.Module):
             out = getattr(self, f"prelu{i}")(out)
             out = getattr(self, f"drop{i}")(out, sampler)
         return self.lin_out(out)
+
+
+class TrialDiscriminatorFC(TrialModule, DiscriminatorFC):
+    """``trials`` independent FC discriminators over (T, B, nstyle)."""
 
 
 class DiscriminatorCNN(nn.Module):

@@ -5,14 +5,14 @@ The encoder ends in an affine-free BatchNorm so the latent is standardized —
 that is what makes the N(0, I) adversarial prior meaningful.  Submodule names
 follow the flax module's (``lin{i}``, ``prelu{i}``, ``bn{i}``, ``lin_out``,
 ``block{i}``, ``lin3``, ``bn_style``) so the weight bridge maps them one to
-one.
+one.  ``TrialFCEncoder`` is ``FCEncoder`` stacked on a leading trial axis.
 """
 from __future__ import annotations
 
 from torch import nn
 
 from rankaae_tpu_torch.models.blocks import EncodingBlock
-from rankaae_tpu_torch.models.primitives import BatchNorm, Dropout, Linear, PReLU
+from rankaae_tpu_torch.models.primitives import BatchNorm, Dropout, Linear, TrialModule, layers_of
 
 
 class FCEncoder(nn.Module):
@@ -25,16 +25,17 @@ class FCEncoder(nn.Module):
     def __init__(self, nstyle: int = 5, dropout_rate: float = 0.2, dim_in: int = 256,
                  n_layers: int = 3, hidden_size: int = 64):
         super().__init__()
+        lin, prelu, bn = layers_of(self)
         self.n_layers = n_layers
         width = dim_in
         for i in range(n_layers - 1):
-            self.add_module(f"lin{i}", Linear(width, hidden_size))
-            self.add_module(f"prelu{i}", PReLU(hidden_size))
-            self.add_module(f"bn{i}", BatchNorm(hidden_size))
+            self.add_module(f"lin{i}", lin(width, hidden_size))
+            self.add_module(f"prelu{i}", prelu(hidden_size))
+            self.add_module(f"bn{i}", bn(hidden_size))
             self.add_module(f"drop{i}", Dropout(dropout_rate))
             width = hidden_size
-        self.lin_out = Linear(width, nstyle)
-        self.bn_style = BatchNorm(nstyle)
+        self.lin_out = lin(width, nstyle)
+        self.bn_style = bn(nstyle)
 
     def forward(self, spec, sampler=None):
         x = spec
@@ -44,6 +45,10 @@ class FCEncoder(nn.Module):
             x = getattr(self, f"bn{i}")(x)
             x = getattr(self, f"drop{i}")(x, sampler)
         return self.bn_style(self.lin_out(x))
+
+
+class TrialFCEncoder(TrialModule, FCEncoder):
+    """``trials`` independent FC encoders over (T, B, dim_in)."""
 
 
 class _ConvEncoder(nn.Module):

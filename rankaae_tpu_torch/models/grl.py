@@ -19,12 +19,14 @@ class _GradReverse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (beta,) = ctx.saved_tensors
-        # the gradient stays in the primal's dtype (beta is an f32 scalar)
+        # the gradient stays in the primal's dtype (beta is float32)
         return (-g * beta).to(g.dtype), None
 
 
 def grad_reverse(x: torch.Tensor, beta) -> torch.Tensor:
     """Identity forward; ``dL/dx = -beta * g`` backward.  ``beta`` may be a
-    Python number or a 0-d tensor (the alpha ramp lives on the device)."""
+    Python number, a 0-d tensor, or a per-trial tensor of shape (T, 1, 1)
+    for a (T, B, C) input (``alpha_limit`` and ``alpha_flat_step`` may
+    differ between trials)."""
     beta = torch.as_tensor(beta, dtype=torch.float32, device=x.device)
     return _GradReverse.apply(x, beta)

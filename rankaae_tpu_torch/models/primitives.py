@@ -14,10 +14,24 @@
   weight (out, in/groups, k)); ``ConvTranspose1d`` is ``nn.ConvTranspose1d``
   restricted to kernel == stride, the only case the model zoo uses (weight
   (in, out/groups, k)).  Both layouts are also the flax modules'.
+
+The trial-stacked primitives carry T independent trials on a leading axis
+and take (T, B, C) inputs: ``TrialLinear`` (weight (T, out, in), bias
+(T, out), one ``baddbmm``), ``TrialPReLU`` ((T, C)) and ``TrialBatchNorm``
+(running statistics (T, C); one ``F.batch_norm`` over the (B, T*C) view, so
+every statistic is per trial).  Dropout needs no stacked class: ``Dropout``
+asks its sampler for the keep-mask, and a
+:class:`~rankaae_tpu_torch.utils.sampler.TrialSampler` draws it per trial.
+Trial t of a stacked module holds the numbers of one single-trial module:
+:class:`TrialModule` exports and imports them in that module's
+``state_dict`` layout, and :func:`reset_parameters` with ``trial=t`` draws
+them in that module's order.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -95,23 +109,124 @@ class Dropout(nn.Module):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+# ---------------------------------------------------------------------------
+# trial-stacked modules
+# ---------------------------------------------------------------------------
+
+
+class TrialLinear(nn.Module):
+    """T independent ``nn.Linear``s over (T, B, in)."""
+
+    def __init__(self, trials: int, in_features: int, out_features: int):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.weight = nn.Parameter(torch.empty(trials, out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(trials, out_features))
+
+    def forward(self, x):
+        return torch.baddbmm(self.bias[:, None, :], x, self.weight.transpose(1, 2))
+
+
+class TrialPReLU(nn.Module):
+    """T independent per-channel PReLUs, initialised to 0.01."""
+
+    def __init__(self, trials: int, num_parameters: int, init_value: float = 0.01):
+        super().__init__()
+        self.init_value = init_value
+        self.weight = nn.Parameter(torch.full((trials, num_parameters), init_value))
+
+    def forward(self, x):
+        # torch's prelu: x where x > 0, else w * x (its gradients too)
+        return torch.where(x > 0, x, self.weight[:, None, :] * x)
+
+
+class TrialBatchNorm(nn.Module):
+    """T independent ``BatchNorm1d(affine=False)`` (momentum 0.1, eps 1e-5):
+    running statistics (T, C), normalised as one batch norm over the
+    (B, T*C) view, whose running-statistic buffers are flat views of the
+    (T, C) storage, so the in-place updates land per trial."""
+
+    def __init__(self, trials: int, num_features: int):
+        super().__init__()
+        self.register_buffer("running_mean", torch.zeros(trials, num_features))
+        self.register_buffer("running_var", torch.ones(trials, num_features))
+
+    def forward(self, x):
+        t, b, c = x.shape
+        y = F.batch_norm(x.transpose(0, 1).reshape(b, t * c), self.running_mean.view(-1),
+                         self.running_var.view(-1), None, None, self.training, 0.1, 1e-5)
+        return y.view(b, t, c).transpose(0, 1)
+
+
+def layers_of(module: nn.Module):
+    """The (Linear, PReLU, BatchNorm) classes ``module`` builds its layers
+    from: the stacked ones bound to its ``trials`` for a
+    :class:`TrialModule`, else the single-trial ones."""
+    if not isinstance(module, TrialModule):
+        return Linear, PReLU, BatchNorm
+    return tuple(functools.partial(cls, module.trials)
+                 for cls in (TrialLinear, TrialPReLU, TrialBatchNorm))
+
+
+class TrialModule(nn.Module):
+    """A module stacked on a leading trial axis (``self.trials``), whose
+    ``state_dict`` has the keys of its single-trial counterpart, each with
+    the trial axis leading.  Mixed in before a single-trial module class
+    that builds its layers through :func:`layers_of`:
+    ``class TrialX(TrialModule, X)`` is ``X(**kw)`` stacked ``trials``
+    times."""
+
+    def __init__(self, trials: int, **kw):
+        self.trials = int(trials)
+        super().__init__(**kw)
+
+    def trial_state_dict(self, i: int, sd: Optional[Mapping[str, torch.Tensor]] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """Trial ``i`` of ``sd`` (default: this module's ``state_dict``) in
+        the single-trial module's ``state_dict`` layout, as views.  The
+        stacked BatchNorms keep no ``num_batches_tracked`` (momentum is
+        fixed, so torch never reads it): it is exported as 0."""
+        sd = self.state_dict() if sd is None else sd
+        out = {k: v[i] for k, v in sd.items()}
+        for name, m in self.named_modules():
+            if isinstance(m, TrialBatchNorm):
+                out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+        return out
+
+    @torch.no_grad()
+    def load_trial_state_dict(self, i: int, sd: Mapping[str, torch.Tensor]) -> None:
+        """Copy a single-trial module's ``state_dict`` into trial ``i``."""
+        for k, v in self.state_dict().items():
+            v[i].copy_(sd[k])
+
+
 @torch.no_grad()
-def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
+def reset_parameters(module: nn.Module, generator: torch.Generator, trial: int = 0) -> None:
     """Torch-default initialisation of every Linear/Conv/PReLU/BatchNorm
     under ``module``, drawn from ``generator`` (``primitives.py:104-136`` in
     the JAX package): U(+-1/sqrt(fan_in)) for weights and biases, with
     fan_in = in_features for Linear, in/groups * k for Conv1d and
-    out/groups * k for ConvTranspose1d (torch reads dim 1 of its weight)."""
+    out/groups * k for ConvTranspose1d (torch reads dim 1 of its weight).
+    Of a stacked module only trial ``trial`` is initialised, with the draws
+    of its single-trial counterpart in the same order."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
             fan_in = m.in_features if isinstance(m, nn.Linear) else m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)
             m.bias.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, PReLU):
-            m.weight.fill_(m.init_value)
+        elif isinstance(m, TrialLinear):
+            bound = 1.0 / math.sqrt(m.in_features)
+            for p in (m.weight, m.bias):
+                p[trial].copy_(torch.empty(p.shape[1:], device=p.device).uniform_(
+                    -bound, bound, generator=generator))
+        elif isinstance(m, (PReLU, TrialPReLU)):
+            (m.weight if isinstance(m, PReLU) else m.weight[trial]).fill_(m.init_value)
         elif isinstance(m, nn.BatchNorm1d):
             m.reset_running_stats()
+        elif isinstance(m, TrialBatchNorm):
+            m.running_mean[trial].zero_()
+            m.running_var[trial].fill_(1.0)
 
 
 def softplus_beta(x, beta: float = 2.0, threshold: float = 20.0):

@@ -32,17 +32,18 @@ def spearman_rho(x, y):
 
 def max_interstyle_spearman(styles):
     """max |spearman(style_i, style_j)| over all style pairs
-    (reference ``trainer.py:288-293``).  styles: (N, nstyle)."""
+    (reference ``trainer.py:288-293``), per trial.  styles: (T, N, nstyle)
+    -> (T,)."""
     styles = styles.float()
-    nstyle = styles.shape[1]
-    ranks = _ranks(styles, dim=0)
-    ranks = ranks - ranks.mean(dim=0, keepdim=True)
-    cov = ranks.T @ ranks
-    d = torch.sqrt(torch.diagonal(cov))
-    corr = cov / torch.clamp(torch.outer(d, d), min=1e-12)
+    nstyle = styles.shape[-1]
+    ranks = _ranks(styles, dim=1)
+    ranks = ranks - ranks.mean(dim=1, keepdim=True)
+    cov = ranks.transpose(1, 2) @ ranks
+    d = torch.sqrt(torch.diagonal(cov, dim1=1, dim2=2))
+    corr = cov / torch.clamp(d[:, :, None] * d[:, None, :], min=1e-12)
     mask = torch.triu(torch.ones((nstyle, nstyle), dtype=torch.bool, device=styles.device),
                       diagonal=1)
-    return torch.max(torch.where(mask, corr.abs(), torch.zeros_like(corr)))
+    return torch.amax(torch.where(mask, corr.abs(), torch.zeros_like(corr)), dim=(1, 2))
 
 
 _P1 = (-2.706056, 4.434685, -2.071190, -0.147981, 0.221157)
@@ -82,5 +83,8 @@ def shapiro_w(x):
 
 
 def min_style_shapiro(styles):
-    """min over style dims of Shapiro–Wilk W (reference ``trainer.py:287,294``)."""
-    return torch.min(_shapiro_w_columns(styles))
+    """min over style dims of Shapiro–Wilk W (reference ``trainer.py:287,294``),
+    per trial.  styles: (T, N, nstyle) -> (T,)."""
+    t, n, nstyle = styles.shape
+    w = _shapiro_w_columns(styles.transpose(0, 1).reshape(n, t * nstyle))
+    return torch.amin(w.view(t, nstyle), dim=1)

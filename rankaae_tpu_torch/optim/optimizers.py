@@ -23,7 +23,10 @@ rectifier, AdaBound's bound factors) are computed on the host in float32,
 as the JAX package computes them on the device.
 
 Parameters are updated in place (under ``no_grad``); the moment buffers are
-updated in place too.
+updated in place too.  The learning rate is a 0-d tensor, or one per trial,
+(T,), for parameters stacked on a leading trial axis: it is then broadcast
+per leaf as (T, 1, ...).  The step count is one host int, as all trials
+step together.
 """
 from __future__ import annotations
 
@@ -55,6 +58,14 @@ class Optimizer:
     update: Callable[..., None]
 
 
+def _per_leaf(lr, p: torch.Tensor):
+    """``lr`` as it broadcasts against ``p``: a per-trial (T,) lr becomes
+    (T, 1, ...) of ``p``'s rank."""
+    if not isinstance(lr, torch.Tensor) or lr.dim() == 0:
+        return lr
+    return lr.view((-1,) + (1,) * (p.dim() - 1))
+
+
 def _adam_moments(grads, state: MomentState, b1: float, b2: float):
     state.count += 1
     for m, v, g in zip(state.mu, state.nu, grads):
@@ -74,7 +85,7 @@ def make_adam(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
             grads = [g + weight_decay * p for g, p in zip(grads, params)]
         bc1, bc2 = _adam_moments(grads, state, b1, b2)
         for p, m, v in zip(params, state.mu, state.nu):
-            p.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+            p.sub_(_per_leaf(lr, p) * (m / bc1) / (torch.sqrt(v / bc2) + eps))
 
     return Optimizer(moment_init, update)
 
@@ -84,7 +95,8 @@ def make_adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
     def update(grads, state, params, lr):
         bc1, bc2 = _adam_moments(grads, state, b1, b2)
         for p, m, v in zip(params, state.mu, state.nu):
-            step = lr * weight_decay * p + lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            lr_p = _per_leaf(lr, p)
+            step = lr_p * weight_decay * p + lr_p * (m / bc1) / (torch.sqrt(v / bc2) + eps)
             p.sub_(step)
 
     return Optimizer(moment_init, update)
@@ -107,11 +119,12 @@ def make_radam(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
         rect = float(np.sqrt(max(ratio, f32(0.0))))
         use_rect = rho_t > 5.0
         for p, m, v in zip(params, state.mu, state.nu):
+            lr_p = _per_leaf(lr, p)
             if weight_decay:
-                p.sub_(lr * weight_decay * p)
+                p.sub_(lr_p * weight_decay * p)
             mhat = m / bc1
             step = rect * mhat / (torch.sqrt(v / bc2) + eps) if use_rect else mhat
-            p.sub_(lr * step)
+            p.sub_(lr_p * step)
 
     return Optimizer(moment_init, update)
 
@@ -128,11 +141,14 @@ def make_adabound(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
             grads = [g + weight_decay * p for g, p in zip(grads, params)]
         bc1, bc2 = _adam_moments(grads, state, b1, b2)
         t = f32(state.count)
-        flr = final_lr * lr / base_lr
-        lower = flr * float(f32(1.0) - f32(1.0) / (f32(gamma) * t + f32(1.0)))
-        upper = flr * float(f32(1.0) + f32(1.0) / (f32(gamma) * t))
-        step_size = lr * float(np.sqrt(f32(bc2))) / bc1
+        lo = float(f32(1.0) - f32(1.0) / (f32(gamma) * t + f32(1.0)))
+        hi = float(f32(1.0) + f32(1.0) / (f32(gamma) * t))
+        root_bc2 = float(np.sqrt(f32(bc2)))
         for p, m, v in zip(params, state.mu, state.nu):
+            lr_p = _per_leaf(lr, p)
+            flr = final_lr * lr_p / base_lr
+            lower, upper = flr * lo, flr * hi
+            step_size = lr_p * root_bc2 / bc1
             eff = torch.minimum(torch.maximum(step_size / (torch.sqrt(v) + eps), lower), upper)
             p.sub_(eff * m)
 

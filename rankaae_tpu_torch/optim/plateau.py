@@ -11,6 +11,9 @@ tensors, so the metric never has to be read on the host:
 * on improvement: best = metric, bad-epoch counter reset
 * otherwise counter += 1; when counter > patience: lr *= factor (skipped if
   the change is below eps), counter = 0.
+
+Every field may carry a leading trial axis, (T,): the update is elementwise,
+so each trial's scheduler steps on its own metric.
 """
 from __future__ import annotations
 
@@ -25,11 +28,14 @@ class PlateauState(NamedTuple):
     num_bad: torch.Tensor      # epochs without improvement (int32 scalar)
 
 
-def plateau_init(lr: float, device="cpu") -> PlateauState:
+def plateau_init(lr, device="cpu") -> PlateauState:
+    """Fresh state for an initial ``lr``: a number (0-d state) or one per
+    trial (a (T,) tensor or sequence)."""
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=device)
     return PlateauState(
-        lr=torch.tensor(lr, dtype=torch.float32, device=device),
-        best=torch.tensor(float("inf"), dtype=torch.float32, device=device),
-        num_bad=torch.zeros((), dtype=torch.int32, device=device),
+        lr=lr.clone(),
+        best=torch.full_like(lr, float("inf")),
+        num_bad=torch.zeros(lr.shape, dtype=torch.int32, device=device),
     )
 
 

@@ -25,21 +25,10 @@ import torch
 from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes
 from rankaae_tpu_torch.train.trainer import RankAAETrainer
 from rankaae_tpu_torch.utils.config import TrainConfig
+from rankaae_tpu_torch.utils.sampler import FixedDraws
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PERTURBATION = 1e-7
-
-
-class _Draws:
-    """The batch's three named draws, fixed."""
-
-    def __init__(self, draws):
-        self.draws = dict(draws)
-
-    def normal(self, name, shape):
-        x = self.draws.pop(name)
-        assert tuple(x.shape) == tuple(shape), (name, x.shape, shape)
-        return torch.tensor(x)
 
 
 def one_batch(cfg: TrainConfig, spec, aux, draws, perturb_seed=None):
@@ -58,8 +47,8 @@ def one_batch(cfg: TrainConfig, spec, aux, draws, perturb_seed=None):
     for o in state.opt.values():
         for v in o.nu:
             v.fill_(1e-8)
-    _, losses = tr._train_batch(state, torch.tensor(spec), torch.tensor(aux), 0.3, 0,
-                                _Draws(draws))
+    _, losses = tr._train_batch(state, torch.tensor(spec)[None], torch.tensor(aux)[None], 0.3,
+                                0, FixedDraws({k: v[None] for k, v in draws.items()}))
     return ({k: v.item() for k, v in losses.items()},
             {f"{k}.{n}": t.detach().clone() for k, m in tr.models.items()
              for n, t in m.state_dict().items() if t.is_floating_point()})

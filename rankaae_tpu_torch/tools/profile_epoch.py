@@ -1,14 +1,16 @@
 """Where an epoch of faithful training spends its time on the card.
 
     python -m rankaae_tpu_torch.tools.profile_epoch [--config FILE]
-        [--ae-form {FC,normal,compact}] [--cnn-discriminator] [--warmup 2]
-        [--out FILE]
+        [--ae-form {FC,normal,compact}] [--cnn-discriminator] [--trials T]
+        [--warmup 2] [--out FILE]
 
 Trains ``--config`` (default ``example/fix_config.yaml``; ``--ae-form`` and
 ``--cnn-discriminator`` override its form and discriminator) at full width
-on the 7,000-row synthetic dataset of ``example/make_data.py``, runs
-``--warmup`` epochs, then profiles one epoch with ``torch.profiler`` (CPU +
-CUDA activities) and prints one JSON object: the epoch's wall time, the
+on the 7,000-row synthetic dataset of ``example/make_data.py``, ``--trials``
+stacked trials at once (default 1; the FC form with the FC discriminator
+stacks them), runs ``--warmup`` epochs, then profiles one epoch with
+``torch.profiler`` (CPU + CUDA activities) and prints one JSON object: the
+epoch's wall time, the
 summed device time of its kernels (one stream, so the sum is the device's
 busy time), the idle share, kernel launches, and the kernels with the most
 device time, the port's own kernels (Kendall, and the fused block in the
@@ -27,16 +29,17 @@ from typing import Optional
 
 import torch
 
+from rankaae_tpu_torch.data.dataset import load_split_arrays
 from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes_csv
-from rankaae_tpu_torch.train.facade import Trainer
-from rankaae_tpu_torch.utils.config import Parameters
+from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def profile_epoch(config: str = os.path.join(REPO, "example", "fix_config.yaml"),
                   ae_form: Optional[str] = None, cnn_discriminator: bool = False,
-                  warmup: int = 2, top: int = 15) -> dict:
+                  warmup: int = 2, top: int = 15, trials: int = 1) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_epoch needs a CUDA device")
     card = subprocess.run(
@@ -49,9 +52,13 @@ def profile_epoch(config: str = os.path.join(REPO, "example", "fix_config.yaml")
             params.update({"ae_form": ae_form})
         if cnn_discriminator:
             params.update({"use_cnn_discriminator": True})
-        trainer = Trainer.from_data(csv, config_parameters=params, device="cuda",
-                                    work_dir=tmp, verbose=False)
-    core, data = trainer.core, trainer.data
+        cfg = TrainConfig.from_parameters(params)
+        splits = load_split_arrays(csv, (cfg.train_ratio, cfg.validation_ratio,
+                                         cfg.test_ratio), cfg.n_aux)
+    data = TrialData(*(torch.from_numpy(a).to("cuda") for a in (
+        splits["train"].spec, splits["train"].aux, splits["val"].spec, splits["val"].aux)))
+    core = RankAAETrainer(cfg, n_train=len(splits["train"]), n_val=len(splits["val"]),
+                          trials=trials, device="cuda")
     state = core.init_state(0)
     for epoch in range(warmup):
         state, _ = core.epoch_step(state, epoch, data)
@@ -65,8 +72,8 @@ def profile_epoch(config: str = os.path.join(REPO, "example", "fix_config.yaml")
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     return {"card": card, "ae_form": core.cfg.ae_form,
-            "use_cnn_discriminator": core.cfg.use_cnn_discriminator, "epoch": warmup,
-            "n_train": core.n_train, "batches": core.n_batch,
+            "use_cnn_discriminator": core.cfg.use_cnn_discriminator, "trials": trials,
+            "epoch": warmup, "n_train": core.n_train, "batches": core.n_batch,
             **kernel_summary(prof, wall_ms, ("pair_sums", "grad_rows", "fused_block"), top)}
 
 
@@ -100,10 +107,12 @@ def main() -> None:
                     help="override the config's ae_form")
     ap.add_argument("--cnn-discriminator", action="store_true",
                     help="train with DiscriminatorCNN")
+    ap.add_argument("--trials", type=int, default=1, help="stacked trials")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
-    result = profile_epoch(args.config, args.ae_form, args.cnn_discriminator, args.warmup)
+    result = profile_epoch(args.config, args.ae_form, args.cnn_discriminator, args.warmup,
+                           trials=args.trials)
     line = json.dumps(result)
     print(line)
     if args.out:

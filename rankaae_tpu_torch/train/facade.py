@@ -14,7 +14,9 @@ metrics list ``[min shapiro-W, val recon MSE, avg train MI, max inter-style
 |rho|, val kendall]`` (``trainer.py:294-295``).
 
 ``device`` defaults to ``cuda:<igpu>``; with no CUDA device present,
-``from_data`` raises unless the caller passes ``device="cpu"``.
+``from_data`` raises unless the caller passes ``device="cpu"``.  The facade
+trains one trial (the trainer at T = 1); ``train_sc``
+(``cli/train_sc.py``) trains the config's ``trials``.
 """
 from __future__ import annotations
 
@@ -32,7 +34,6 @@ from rankaae_tpu_torch.utils.checkpoint import save_model_bundle
 from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
 from rankaae_tpu_torch.utils.device import resolve_device
 from rankaae_tpu_torch.utils.logging import write_losses_csv
-from rankaae_tpu_torch.utils.weights import to_jax
 
 
 class Trainer:
@@ -98,24 +99,25 @@ class Trainer:
             self.epoch_seconds.append(time.perf_counter() - t0)
             logs.append(log)
         self.state = state
+        # the one trial's logs, stacked over epochs: (E, ...)
         self.logs = {k: np.asarray([log[k] for log in logs]) if k == "epoch"
-                     else torch.stack([log[k] for log in logs]).cpu().numpy()
+                     else torch.stack([log[k][0] for log in logs]).cpu().numpy()
                      for k in logs[0]}
 
         os.makedirs(self.work_dir, exist_ok=True)
         write_losses_csv(os.path.join(self.work_dir, "losses.csv"), self.logs)
-        cfg, models = core.cfg, core.models
-        save_model_bundle(os.path.join(self.work_dir, "final.mpk"), *to_jax(models), cfg)
+        cfg = core.cfg
+        save_model_bundle(os.path.join(self.work_dir, "final.mpk"), *core.export(0), cfg)
         save_model_bundle(
             os.path.join(self.work_dir, "best_tracked.mpk"),
-            *to_jax(models, state.best_state), cfg,
-            extra={"best_epoch": int(state.best_epoch),
-                   "best_combined": float(state.best_combined)})
+            *core.export(0, state.best_state), cfg,
+            extra={"best_epoch": int(state.best_epoch[0]),
+                   "best_combined": float(state.best_combined[0])})
         save_model_bundle(
             os.path.join(self.work_dir, "best_recon.mpk"),
-            *to_jax(models, state.best_recon_state), cfg,
-            extra={"best_recon_epoch": int(state.best_recon_epoch),
-                   "best_recon_mse": float(state.best_recon)})
+            *core.export(0, state.best_recon_state), cfg,
+            extra={"best_recon_epoch": int(state.best_recon_epoch[0]),
+                   "best_recon_mse": float(state.best_recon[0])})
 
         metrics_all = self.logs["metrics"]
         if callback is not None:

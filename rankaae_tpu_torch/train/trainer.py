@@ -18,6 +18,16 @@ quality metrics, the plateau schedulers, the best trackers — so the loop
 needs no host sync.  The Kendall loss goes through the CUDA kernel pair on
 the card (``ops/kendall_cuda.py``).
 
+Where the JAX package ``vmap``s a trial axis, this trainer carries one:
+T trials live stacked in every module (``models/registry.py``), every
+tensor of a batch is (T, B, ...), every loss is (T,) and each optimizer
+differentiates the sum over trials (trials share no parameter, so each gets
+its own gradient), every learning rate, scheduler and tracker is per trial,
+and each trial draws from its own generator (``utils/sampler.py``): trial g
+of a T-trial run with seed s is the 1-trial run with seed s + g.  One
+launch of each kernel serves all T trials.  The forms not stacked yet (the
+conv forms, the CNN discriminator) train at T = 1 through the same code.
+
 The faithful protocol is ported for every form but ``qved`` (FC,
 ``normal``, ``compact``), both discriminators, gradient reversal on or off
 (the non-GRL branch steps a D and a G optimizer) and the four optimizers.
@@ -27,8 +37,9 @@ The ``fused``/``joint`` protocols, ``flat_optim``, bfloat16 activations and
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -48,7 +59,8 @@ from rankaae_tpu_torch.optim.optimizers import MomentState, Optimizer, make_opti
 from rankaae_tpu_torch.optim.plateau import PlateauState, plateau_init, plateau_update
 from rankaae_tpu_torch.utils.config import TrainConfig
 from rankaae_tpu_torch.utils.device import resolve_device
-from rankaae_tpu_torch.utils.sampler import Sampler
+from rankaae_tpu_torch.utils.sampler import TrialSampler
+from rankaae_tpu_torch.utils.weights import to_jax
 
 # reference trainer.py:35-36
 METRIC_WEIGHTS = (1.0, -1.0, -0.01, -1.0, -1.0)
@@ -73,6 +85,19 @@ OPT_SPECS = {
 # omits the kwarg)
 DEFAULT_WD = {"Adam": 0.0, "AdamW": 1e-2, "RAdam": 0.0, "AdaBound": 0.0}
 
+#: config knobs that may differ between the trials of one run
+#: (``rankaae_tpu/train/trainer.py:133``)
+SWEEPABLE_HPARAMS = ("spec_noise", "alpha_limit", "alpha_flat_step")
+
+
+def per_trial(name: str, values, trials: int) -> np.ndarray:
+    """``values`` as host float32 of shape (trials,), or a ValueError that
+    names them."""
+    values = np.asarray(values, np.float32)
+    if values.shape != (trials,):
+        raise ValueError(f"{name} must have shape ({trials},), got {values.shape}")
+    return values
+
 
 @dataclasses.dataclass
 class TrialData:
@@ -87,11 +112,15 @@ class TrialData:
 @dataclasses.dataclass
 class TrainState:
     """Everything a run carries besides the trainer's module weights (which
-    live in ``RankAAETrainer.models``)."""
+    live in ``RankAAETrainer.models``); every tensor has the trial axis
+    leading."""
 
     opt: Dict[str, MomentState]          # one moment state per optimizer
-    sched: Dict[str, PlateauState]       # one plateau state per optimizer
-    sampler: Sampler                     # the run's random draws
+    sched: Dict[str, PlateauState]       # one plateau state per optimizer, (T,) each
+    sampler: TrialSampler                # the run's random draws, one generator a trial
+    #: the SWEEPABLE_HPARAMS per trial, host float32 (T,)
+    hparams: Dict[str, np.ndarray]
+    spec_noise: torch.Tensor             # hparams["spec_noise"] on the device, (T, 1, 1)
     # true-best tracking (min combined metric)
     best_combined: torch.Tensor
     best_epoch: torch.Tensor
@@ -104,32 +133,46 @@ class TrainState:
     best_recon_state: Dict[str, Dict[str, torch.Tensor]]
 
 
-class RankAAETrainer:
-    """Trainer for one config and one trial, on ``device`` (default
-    ``"cuda"``; raises if no CUDA device is present)."""
+def _lead(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-trial (T,) tensor shaped to broadcast against ``like``, whose
+    leading axis is the trial axis (or, at T = 1, any axis)."""
+    if like.dim() == 0:
+        return v.reshape(())
+    return v.view((v.shape[0],) + (1,) * (like.dim() - 1))
 
-    def __init__(self, cfg: TrainConfig, n_train: int, n_val: int, device=None):
+
+class RankAAETrainer:
+    """Trainer for one config and ``trials`` stacked trials, on ``device``
+    (default ``"cuda"``; raises if no CUDA device is present)."""
+
+    def __init__(self, cfg: TrainConfig, n_train: int, n_val: int, trials: int = 1,
+                 device=None):
         cfg.validate()
         if cfg.protocol != "faithful":
             raise NotImplementedError(
-                f"protocol {cfg.protocol!r} is not ported yet (ROADMAP queue 1, item 13)")
+                f"protocol {cfg.protocol!r} is not ported yet (ROADMAP queue 1, item 8)")
         if cfg.activation_dtype != "float32":
-            raise NotImplementedError("activation_dtype bfloat16 is not ported yet")
+            raise NotImplementedError(
+                "activation_dtype bfloat16 is not ported yet (ROADMAP queue 1, item 9)")
         if cfg.flat_optim:
             raise NotImplementedError(
-                "flat_optim is not ported yet (ROADMAP queue 1, item 13)")
+                "flat_optim is not ported yet (ROADMAP queue 1, item 7)")
+        if trials < 1:
+            raise ValueError(f"trials must be >= 1, got {trials}")
         self.device = resolve_device(device)
         set_matmul_precision(cfg.matmul_precision)
         self.cfg = cfg
         self.n_train = n_train
         self.n_val = n_val
         self.n_batch = -(-n_train // cfg.batch_size)
-        encoder, decoder = build_autoencoder(cfg)      # raises for qved
+        self.trials = trials
+        encoder, decoder = build_autoencoder(cfg, trials)      # raises for qved
         self.models: Dict[str, nn.Module] = {
             "enc": encoder.to(self.device),
             "dec": decoder.to(self.device),
-            "dis": build_discriminator(cfg).to(self.device),
+            "dis": build_discriminator(cfg, trials).to(self.device),
         }
+        self._single_models: Optional[Dict[str, nn.Module]] = None
         self.opts: Dict[str, Optimizer] = {}
         for name, (_, ratio_attr, beta_attr, explicit_wd) in OPT_SPECS.items():
             betas = (0.9, 0.999)
@@ -154,101 +197,182 @@ class RankAAETrainer:
         return {k: {n: t.detach().clone() for n, t in m.state_dict().items()}
                 for k, m in self.models.items()}
 
-    def init_state(self, seed: int = 0) -> TrainState:
-        """Fresh weights (torch-default init drawn from the run's generator)
-        and fresh optimizer, scheduler and tracker state."""
-        cfg = self.cfg
-        sampler = Sampler(seed, self.device)
-        for key in ("enc", "dec", "dis"):
-            reset_parameters(self.models[key], sampler.generator)
+    def init_state(self, seed: int = 0, lr_scales=None, hparams=None) -> TrainState:
+        """Fresh weights (torch-default init, trial t drawn from the run's
+        generator t, seeded ``seed + t``) and fresh optimizer, scheduler and
+        tracker state.
+
+        ``lr_scales`` ((T,)) multiplies each trial's initial learning rates;
+        ``hparams`` maps keys of :data:`SWEEPABLE_HPARAMS` to per-trial
+        values ((T,)) that replace the config's
+        (``rankaae_tpu/train/trainer.py:204-286``)."""
+        cfg, t = self.cfg, self.trials
+        if lr_scales is not None and cfg.optimizer_name == "AdaBound":
+            # AdaBound's bound target uses the base_lr fixed when the
+            # optimizer is made; scaling only the runtime lr would train no
+            # real AdaBound configuration (trainer.py:214-228, trials.py:171-179)
+            raise NotImplementedError(
+                "lr_scales is not supported with AdaBound (its lr-bound schedule depends "
+                "on a static base_lr); use Adam/AdamW/RAdam, or run separate AdaBound configs")
+        scales = np.ones(t, np.float32) if lr_scales is None else \
+            per_trial("lr_scales", lr_scales, t)
+        hp = {k: np.full(t, getattr(cfg, k), np.float32) for k in SWEEPABLE_HPARAMS}
+        for k, v in (hparams or {}).items():
+            if k not in SWEEPABLE_HPARAMS:
+                raise KeyError(f"{k!r} is not sweepable; choose from {SWEEPABLE_HPARAMS}")
+            hp[k] = per_trial(f"hparams[{k!r}]", v, t)
+
+        sampler = TrialSampler(seed, t, self.device)
+        for i, gen in enumerate(sampler.generators):
+            for key in ("enc", "dec", "dis"):
+                reset_parameters(self.models[key], gen, trial=i)
         opt = {name: self.opts[name].init(self._params(name)) for name in OPT_SPECS}
-        sched = {name: plateau_init(getattr(cfg, ratio) * cfg.lr_base, self.device)
+        scales_t = torch.tensor(scales, device=self.device)
+        sched = {name: plateau_init(torch.tensor(getattr(cfg, ratio) * cfg.lr_base,
+                                                 dtype=torch.float32, device=self.device)
+                                    * scales_t, self.device)
                  for name, (_, ratio, _, _) in OPT_SPECS.items()}
 
-        def scalar(v, dtype=torch.float32):
-            return torch.tensor(v, dtype=dtype, device=self.device)
+        def full(v, dtype=torch.float32):
+            return torch.full((t,), v, dtype=dtype, device=self.device)
 
         return TrainState(
-            opt=opt, sched=sched, sampler=sampler,
-            best_combined=scalar(float("inf")),
-            best_epoch=scalar(-1, torch.int32),
+            opt=opt, sched=sched, sampler=sampler, hparams=hp,
+            spec_noise=torch.tensor(hp["spec_noise"], device=self.device).view(t, 1, 1),
+            best_combined=full(float("inf")),
+            best_epoch=full(-1, torch.int32),
             best_state=self._snapshot(),
-            faithful_best=scalar(10.0),
-            best_recon=scalar(float("inf")),
-            best_recon_epoch=scalar(-1, torch.int32),
+            faithful_best=full(10.0),
+            best_recon=full(float("inf")),
+            best_recon_epoch=full(-1, torch.int32),
             best_recon_state=self._snapshot(),
         )
 
+    # ------------------------------------------------------------------ #
+    # one trial's weights in the single-trial modules' layout
+    # ------------------------------------------------------------------ #
+
+    @property
+    def single_models(self) -> Dict[str, nn.Module]:
+        """Single-trial modules of the config (on the CPU), the layout that
+        :func:`~rankaae_tpu_torch.utils.weights.to_jax`, the bundles and
+        serving use."""
+        if self._single_models is None:
+            encoder, decoder = build_autoencoder(self.cfg)
+            self._single_models = {"enc": encoder, "dec": decoder,
+                                   "dis": build_discriminator(self.cfg)}
+        return self._single_models
+
+    def trial_state_dicts(self, i: int,
+                          snapshot: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None
+                          ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Trial ``i`` of the modules (or of a snapshot the trackers keep)
+        as ``{role: single-trial state_dict}``."""
+        return {k: m.trial_state_dict(i, None if snapshot is None else snapshot[k])
+                for k, m in self.models.items()}
+
+    def load_trial_state_dicts(self, i: int,
+                               sds: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
+        """Load ``{role: single-trial state_dict}`` into trial ``i``."""
+        for k, m in self.models.items():
+            m.load_trial_state_dict(i, sds[k])
+
+    def export(self, i: int, snapshot=None):
+        """Trial ``i`` as the JAX package's ``(params, batch_stats)`` trees
+        (what a model bundle holds)."""
+        return to_jax(self.single_models, self.trial_state_dicts(i, snapshot))
+
     def _opt_step(self, name: str, loss: torch.Tensor, state: TrainState) -> None:
-        """Gradient of ``loss`` over the optimizer's parameter subset, then
-        its update (in place)."""
+        """Gradient of the trials' summed ``loss`` (T,) over the optimizer's
+        parameter subset, then its update (in place).  Trials share no
+        parameter, so each gets exactly its own gradient."""
         params = self._params(name)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = torch.autograd.grad(loss.sum(), params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         self.opts[name].update(grads, state.opt[name], params, state.sched[name].lr)
 
     def _label_loss(self, pred, label: int):
-        """The discriminator's loss on ``pred`` against one label for every
-        row: NLL on the CNN discriminator's 2-class log-probabilities, BCE
-        on the FC one's logit.  The discriminator's loss labels real 1 and
-        fake 0; the generator's labels its fakes 1 (the documented deviation
-        from the reference, which labels them 0; PARITY.md #4/#10)."""
+        """The discriminator's loss (T,) on ``pred`` against one label for
+        every row: NLL on the CNN discriminator's 2-class log-probabilities,
+        BCE on the FC one's logit.  The discriminator's loss labels real 1
+        and fake 0; the generator's labels its fakes 1 (the documented
+        deviation from the reference, which labels them 0; PARITY.md
+        #4/#10)."""
         if self.cfg.use_cnn_discriminator:
-            return nll_loss(pred, torch.full((pred.shape[0],), label, device=pred.device))
+            return nll_loss(pred, torch.full(pred.shape[:-1], label, device=pred.device))
         logit = pred.squeeze(-1)
         return bce_with_logits(logit, torch.full_like(logit, float(label)))
+
+    def _beta(self, alpha) -> torch.Tensor:
+        """The GRL strength per trial as (T, 1, 1) (``alpha`` a number or (T,))."""
+        return torch.as_tensor(alpha, dtype=torch.float32, device=self.device).reshape(-1, 1, 1)
+
+    def _alpha(self, state: TrainState, epoch: int) -> torch.Tensor:
+        """The GRL ramp of each trial at ``epoch``, (T,) (0 without GRL)."""
+        if not self.cfg.gradient_reversal:
+            return torch.zeros(self.trials, device=self.device)
+        hp = state.hparams
+        return torch.tensor(
+            [alpha_schedule(epoch / self.cfg.max_epoch, float(step), float(limit))
+             for step, limit in zip(hp["alpha_flat_step"], hp["alpha_limit"])],
+            dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------ #
     # per-batch training protocol (reference trainer.py:103-204)
     # ------------------------------------------------------------------ #
 
     def _train_batch(self, state: TrainState, spec, aux, alpha, epoch: int,
-                     sampler: Optional[Sampler] = None):
+                     sampler: Optional[TrialSampler] = None):
+        """One batch of every trial: ``spec`` (T, B, dim_in), ``aux``
+        (T, B, n_aux), ``alpha`` the GRL strength (T,) or a number.  Returns
+        the state and the six losses, (T,) each."""
         cfg = self.cfg
         sampler = state.sampler if sampler is None else sampler
         enc, dec = self.models["enc"], self.models["dec"]
         for m in self.models.values():
             m.train()
+        t, b = spec.shape[:2]
 
         # input noise (trainer.py:112)
-        spec_in = spec + sampler.normal("spec_noise", spec.shape) * cfg.spec_noise
+        spec_in = spec + sampler.normal("spec_noise", spec.shape) * state.spec_noise
 
-        z_real = sampler.normal("z_real", (cfg.batch_size, cfg.nstyle))
+        z_real = sampler.normal("z_real", (t, cfg.batch_size, cfg.nstyle))
         if cfg.gradient_reversal:
-            dis_loss = self._adversarial_step(state, spec_in, z_real, alpha, sampler)
-            gen_loss = torch.zeros((), device=self.device)
+            dis_loss = self._adversarial_step(state, spec_in, z_real, self._beta(alpha),
+                                              sampler)
+            gen_loss = torch.zeros(t, device=self.device)
         else:
             dis_loss, gen_loss = self._gan_steps(state, spec_in, z_real, sampler)
 
         # ---- kendall / correlation step (trainer.py:152-161) ----------- #
-        styles = enc(spec_in, sampler)
-        aux_loss = kendall_constraint(aux, styles[:, : cfg.n_aux],
+        styles = enc(spec_in, sampler=sampler)
+        aux_loss = kendall_constraint(aux, styles[..., : cfg.n_aux],
                                       activate=cfg.kendall_activation)
         self._opt_step("correlation", aux_loss, state)
 
         # ---- reconstruction step (trainer.py:163-172) ------------------ #
-        spec_out = dec(enc(spec_in, sampler), sampler)
+        spec_out = dec(enc(spec_in, sampler=sampler), sampler=sampler)
         rec_loss = recon_loss(spec_in, spec_out, scale=cfg.use_flex_spec_target,
                               scale_weight=cfg.flex_scale_weight)
         self._opt_step("reconstruction", rec_loss, state)
 
         # ---- mutual-info step (trainer.py:174-186) --------------------- #
         with torch.no_grad():
-            enc(spec_in, sampler)      # dead re-encode at trainer.py:176: stats only
+            enc(spec_in, sampler=sampler)      # dead re-encode at trainer.py:176: stats only
         # z ~ N(0,I) at the ACTUAL batch size (functions.py:185)
-        z_sample = sampler.normal("z_sample", (spec.shape[0], cfg.nstyle))
-        z_recon = enc(dec(z_sample, sampler), sampler)
+        z_sample = sampler.normal("z_sample", (t, b, cfg.nstyle))
+        z_recon = enc(dec(z_sample, sampler=sampler), sampler=sampler)
         mi_loss = mse(z_recon, z_sample)
         self._opt_step("mutual_info", mi_loss, state)
 
         # ---- smoothness step, until epoch_stop_smooth (trainer.py:188-200) #
         if epoch < cfg.epoch_stop_smooth:
             with torch.no_grad():
-                styles = enc(spec_in, sampler)
-            sm_loss = smoothness_loss(dec(styles, sampler), GAU_KERNEL_SIZE)
+                styles = enc(spec_in, sampler=sampler)
+            sm_loss = smoothness_loss(dec(styles, sampler=sampler), GAU_KERNEL_SIZE)
             self._opt_step("smoothness", sm_loss, state)
         else:
-            sm_loss = torch.zeros((), device=self.device)
+            sm_loss = torch.zeros(t, device=self.device)
 
         return state, {
             "dis": dis_loss.detach(),
@@ -259,26 +383,27 @@ class RankAAETrainer:
             "mi": mi_loss.detach(),
         }
 
-    def _adversarial_step(self, state: TrainState, spec_in, z_real, alpha, sampler):
+    def _adversarial_step(self, state: TrainState, spec_in, z_real, beta, sampler):
         """The GRL step (``trainer.py:334-373`` in the JAX package): one
         backward trains the discriminator and, reversed, the encoder."""
         enc, dec, dis = self.models["enc"], self.models["dec"], self.models["dis"]
-        styles = enc(spec_in, sampler)
+        styles = enc(spec_in, sampler=sampler)
         with torch.no_grad():
             # the reference's dead decode (trainer.py:113-114): stats only
-            dec(styles, sampler)
+            dec(styles, sampler=sampler)
         if self.cfg.use_cnn_discriminator:
             # BatchNorms inside: two sequential forwards, so each batch is
             # normalised by its own statistics and the running statistics
             # take the real batch, then the fake one (one concatenated
             # forward would mix them)
-            real_pred = dis(z_real, alpha, sampler)
-            fake_pred = dis(styles, alpha, sampler)
+            real_pred = dis(z_real, beta, sampler=sampler)
+            fake_pred = dis(styles, beta, sampler=sampler)
         else:
-            # the FC discriminator is BN-free: one (B_real + B, nstyle)
+            # the FC discriminator is BN-free: one (T, B_real + B, nstyle)
             # forward, the loss taken as two separately averaged halves
-            pred = dis(torch.cat([z_real, styles], dim=0), alpha, sampler)
-            real_pred, fake_pred = pred[: z_real.shape[0]], pred[z_real.shape[0]:]
+            n_real = z_real.shape[1]
+            pred = dis(torch.cat([z_real, styles], dim=1), beta, sampler=sampler)
+            real_pred, fake_pred = pred[:, :n_real], pred[:, n_real:]
         dis_loss = self._label_loss(real_pred, 1) + self._label_loss(fake_pred, 0)
         self._opt_step("adversarial", dis_loss, state)
         return dis_loss
@@ -289,13 +414,13 @@ class RankAAETrainer:
         optimizer, then a G step on the generator optimizer."""
         enc, dec, dis = self.models["enc"], self.models["dec"], self.models["dis"]
         with torch.no_grad():
-            dec(enc(spec_in, sampler), sampler)     # trainer.py:113-114: stats only
-            styles = enc(spec_in, sampler)
-        real_pred = dis(z_real, None, sampler)
-        fake_pred = dis(styles, None, sampler)
+            dec(enc(spec_in, sampler=sampler), sampler=sampler)   # trainer.py:113-114: stats only
+            styles = enc(spec_in, sampler=sampler)
+        real_pred = dis(z_real, None, sampler=sampler)
+        fake_pred = dis(styles, None, sampler=sampler)
         dis_loss = self._label_loss(real_pred, 1) + self._label_loss(fake_pred, 0)
         self._opt_step("discriminator", dis_loss, state)
-        gen_loss = self._label_loss(dis(enc(spec_in, sampler), None, sampler), 1)
+        gen_loss = self._label_loss(dis(enc(spec_in, sampler=sampler), None, sampler=sampler), 1)
         self._opt_step("generator", gen_loss, state)
         return dis_loss, gen_loss
 
@@ -305,17 +430,20 @@ class RankAAETrainer:
 
     @torch.no_grad()
     def _validate(self, state: TrainState, data: TrialData, alpha,
-                  sampler: Optional[Sampler] = None):
-        cfg = self.cfg
+                  sampler: Optional[TrialSampler] = None):
+        """Every trial on the validation split (shared by the trials);
+        returns the latent (T, n_val, nstyle) and the losses, (T,) each."""
+        cfg, t = self.cfg, self.trials
         sampler = state.sampler if sampler is None else sampler
         enc, dec, dis = self.models["enc"], self.models["dec"], self.models["dis"]
         for m in self.models.values():
             m.eval()
-        z = enc(data.val_spec)
+        val_spec = data.val_spec.expand(t, -1, -1)
+        z = enc(val_spec)
         spec_out = dec(z)
 
-        recon_v = mse(spec_out, data.val_spec)   # plain MSE (trainer.py:223)
-        aux_v = kendall_constraint(data.val_aux, z[:, : cfg.n_aux],
+        recon_v = mse(spec_out, val_spec)   # plain MSE (trainer.py:223)
+        aux_v = kendall_constraint(data.val_aux.expand(t, -1, -1), z[..., : cfg.n_aux],
                                    activate=cfg.kendall_activation)
         smooth_v = smoothness_loss(spec_out, GAU_KERNEL_SIZE)
 
@@ -324,21 +452,21 @@ class RankAAETrainer:
         # denominator, as in the JAX package (trainer.py:881-882).  The
         # median of an even count averages the two middle values, as
         # jnp.median does (torch.median would return the lower one).
-        ratio = torch.abs(spec_out.float().mean(dim=1)) / torch.abs(data.val_spec.mean(dim=1))
-        gain_v = torch.quantile(ratio, 0.5)
-        clamp_frac_v = ((ratio < 0.7) | (ratio > 1.3)).float().mean()
+        ratio = torch.abs(spec_out.float().mean(dim=-1)) / torch.abs(data.val_spec.mean(dim=-1))
+        gain_v = torch.quantile(ratio, 0.5, dim=1)
+        clamp_frac_v = ((ratio < 0.7) | (ratio > 1.3)).float().mean(dim=1)
 
-        z_sample = sampler.normal("z_val", (self.n_val, cfg.nstyle))
+        z_sample = sampler.normal("z_val", (t, self.n_val, cfg.nstyle))
         mi_v = mse(enc(dec(z_sample)), z_sample)
 
         # the prior draw: batch_size rows with GRL, n_val rows without
         # (trainer.py:900-913 in the JAX package)
-        beta = alpha if cfg.gradient_reversal else None
+        beta = self._beta(alpha) if cfg.gradient_reversal else None
         n_real = cfg.batch_size if cfg.gradient_reversal else self.n_val
-        z_real = sampler.normal("z_real_val", (n_real, cfg.nstyle))
+        z_real = sampler.normal("z_real_val", (t, n_real, cfg.nstyle))
         fp = dis(z, beta)
         dis_v = self._label_loss(dis(z_real, beta), 1) + self._label_loss(fp, 0)
-        gen_v = torch.zeros((), device=self.device) if cfg.gradient_reversal \
+        gen_v = torch.zeros(t, device=self.device) if cfg.gradient_reversal \
             else self._label_loss(fp, 1)
         return z, {"recon": recon_v, "aux": aux_v, "smooth": smooth_v,
                    "mi": mi_v, "dis": dis_v, "gen": gen_v,
@@ -349,42 +477,46 @@ class RankAAETrainer:
     # ------------------------------------------------------------------ #
 
     def _track(self, best: Dict[str, Dict[str, torch.Tensor]], take: torch.Tensor) -> None:
+        """Copy the trials where ``take`` (T,) is true into the snapshot."""
         with torch.no_grad():
             for key, m in self.models.items():
-                for name, t in m.state_dict().items():
-                    best[key][name].copy_(torch.where(take, t, best[key][name]))
+                for name, x in m.state_dict().items():
+                    best[key][name].copy_(torch.where(_lead(take, x), x, best[key][name]))
 
     def epoch_step(self, state: TrainState, epoch: int, data: TrialData):
-        cfg = self.cfg
-        alpha = alpha_schedule(epoch / cfg.max_epoch, cfg.alpha_flat_step, cfg.alpha_limit) \
-            if cfg.gradient_reversal else 0.0
+        """One epoch of every trial (``rankaae_tpu/train/trainer.py:936-1056``);
+        the log's values have the trial axis leading."""
+        cfg, t = self.cfg, self.trials
+        alpha = self._alpha(state, epoch)
 
         # DataLoader shuffle + drop_last=False (dataloader.py:66-70): a
-        # permutation sliced into full batches plus one smaller trailing batch
+        # permutation per trial, sliced into full batches plus one smaller
+        # trailing batch
         perm = state.sampler.permutation(self.n_train)
-        starts = range(0, self.n_train, cfg.batch_size)
-        mi_sum = torch.zeros((), device=self.device)
+        mi_sum = torch.zeros(t, device=self.device)
         last = None
-        for start in starts:
-            idx = perm[start:start + cfg.batch_size]
+        for start in range(0, self.n_train, cfg.batch_size):
+            idx = perm[:, start:start + cfg.batch_size]
+            flat = idx.reshape(-1)
+            b = idx.shape[1]
             state, last = self._train_batch(
-                state, data.train_spec.index_select(0, idx),
-                data.train_aux.index_select(0, idx), alpha, epoch)
+                state, data.train_spec.index_select(0, flat).view(t, b, -1),
+                data.train_aux.index_select(0, flat).view(t, b, -1), alpha, epoch)
             mi_sum = mi_sum + last["mi"]
         avg_mi = mi_sum / self.n_batch
 
         z_val, val_losses = self._validate(state, data, alpha)
 
-        # quality metrics (trainer.py:286-297)
+        # quality metrics (trainer.py:286-297), (T, 5)
         metrics = torch.stack([
             min_style_shapiro(z_val),
             val_losses["recon"],
             avg_mi,
             max_interstyle_spearman(z_val),
             val_losses["aux"],
-        ])
+        ], dim=1)
         weights = torch.tensor(METRIC_WEIGHTS, dtype=torch.float32, device=self.device)
-        combined = -torch.sum(weights * metrics)
+        combined = -torch.sum(weights * metrics, dim=1)
         epoch_t = torch.tensor(epoch, dtype=torch.int32, device=self.device)
 
         # true-best tracking (min combined)
@@ -431,5 +563,6 @@ class RankAAETrainer:
 
     @staticmethod
     def final_metrics(logs):
-        """metrics list of the last epoch (reference ``Trainer.train`` return)."""
+        """metrics list of the last epoch (reference ``Trainer.train`` return)
+        of logs stacked over epochs (E, ...)."""
         return logs["metrics"][-1]

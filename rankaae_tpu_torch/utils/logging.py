@@ -1,7 +1,28 @@
-"""``losses.csv`` writer (counterpart of ``rankaae_tpu/utils/logging.py``):
-the 12-column loss table, exact schema of the reference's ``trainer.py:84-87``,
-consumed unmodified by the report layer's LossCurvePlotter."""
+"""File loggers (counterpart of ``rankaae_tpu/utils/logging.py``): the
+per-trial ``messages.txt`` event log and ``losses.csv``, the 12-column loss
+table, exact schema of the reference's ``trainer.py:84-87``, consumed
+unmodified by the report layer's LossCurvePlotter."""
 from __future__ import annotations
+
+import logging
+import os
+
+
+def create_logger(name: str, file_path: str, append: bool = False) -> logging.Logger:
+    """A logger named ``name`` writing to ``file_path`` alone (reference
+    ``sc/utils/logger.py``)."""
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.DEBUG)
+    for handler in logger.handlers:
+        handler.close()
+    logger.handlers.clear()
+    logger.propagate = False
+    os.makedirs(os.path.dirname(os.path.abspath(file_path)), exist_ok=True)
+    fh = logging.FileHandler(file_path, mode="a" if append else "w")
+    fh.setFormatter(logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
+    logger.addHandler(fh)
+    return logger
+
 
 LOSS_CSV_HEADER = (
     "Epoch,Train_D,Val_D,Train_G,Val_G,Train_Aux,Val_Aux,Train_Recon,"

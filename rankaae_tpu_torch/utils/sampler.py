@@ -1,25 +1,35 @@
-"""The one source of random draws for a training run.
+"""The sources of random draws for a training run.
 
 ``rankaae_tpu`` splits and folds ``jax.random`` keys; here every draw comes
-from one ``torch.Generator`` through a :class:`Sampler`, in program order.
-Draws are named after what they feed, so a test can subclass the sampler and
-hand in fixed arrays for the named draws (``jax.random`` and
-``torch.Generator`` give different numbers from the same seed).
+from a seeded ``torch.Generator``, in program order.  A :class:`Sampler` is
+one generator (one trial, for the modules that are not stacked on a trial
+axis); a :class:`TrialSampler` is one generator per trial, trial g of a run
+with base seed s seeded with s + g, and draws each trial's slice from that
+trial's generator.  So trial g of a T-trial run takes exactly the draws of a
+1-trial run with seed s + g, whatever T is.  Draws are named after what they
+feed, so a :class:`FixedDraws` can hand in fixed arrays for the named draws
+where two runs must take the same numbers (``jax.random`` and
+``torch.Generator`` give different numbers from the same seed, and a CPU
+and a CUDA generator do too).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
+import numpy as np
 import torch
 
 
 class Sampler:
-    """Named draws from one seeded generator on ``device``."""
+    """Named draws from one seeded generator on ``device`` (or from the
+    given ``generator``)."""
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, generator: torch.Generator = None):
         self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(int(seed))
+        self.generator = generator
 
     def normal(self, name: str, shape: Sequence[int]) -> torch.Tensor:
         """Standard-normal float32 draw; ``name`` identifies the draw site
@@ -32,3 +42,87 @@ class Sampler:
 
     def permutation(self, n: int) -> torch.Tensor:
         return torch.randperm(n, generator=self.generator, device=self.device)
+
+
+class TrialSampler:
+    """Named draws for ``trials`` stacked trials: every shape passed in has
+    the trial axis leading, and trial t's slice comes from generator t
+    (seeded ``seed + t``).  One launch per trial and draw site."""
+
+    def __init__(self, seed: int, trials: int, device):
+        self.device = torch.device(device)
+        self.seed = int(seed)
+        self.generators: List[torch.Generator] = []
+        for t in range(trials):
+            g = torch.Generator(device=self.device)
+            g.manual_seed(self.seed + t)
+            self.generators.append(g)
+
+    @property
+    def trials(self) -> int:
+        return len(self.generators)
+
+    def trial(self, i: int) -> Sampler:
+        """A plain :class:`Sampler` over generator ``i``, for the modules
+        that are not stacked (they run at T = 1)."""
+        return Sampler(self.seed + i, self.device, generator=self.generators[i])
+
+    def _stack(self, draw, shape: Sequence[int]) -> torch.Tensor:
+        shape = tuple(shape)
+        if shape[0] != self.trials:
+            raise ValueError(f"draw of shape {shape} for {self.trials} trials")
+        if self.trials == 1:
+            return draw(shape[1:], self.generators[0])[None]
+        return torch.stack([draw(shape[1:], g) for g in self.generators])
+
+    def normal(self, name: str, shape: Sequence[int]) -> torch.Tensor:
+        """(T, ...) standard-normal float32 draw; ``name`` as in
+        :meth:`Sampler.normal`."""
+        return self._stack(lambda s, g: torch.randn(s, generator=g, device=self.device), shape)
+
+    def keep_mask(self, shape: Sequence[int], keep: float) -> torch.Tensor:
+        return self._stack(lambda s, g: torch.rand(s, generator=g, device=self.device),
+                           shape) < keep
+
+    def permutation(self, n: int) -> torch.Tensor:
+        """(T, n): one permutation of range(n) per trial."""
+        return self._stack(lambda s, g: torch.randperm(s[0], generator=g, device=self.device),
+                           (self.trials, n))
+
+
+class FixedDraws(TrialSampler):
+    """A sampler that hands out given arrays for the named draws: each
+    ``draws[name]`` is an array with the trial axis leading, or a list of
+    them handed out in order (a draw site that a run visits several times,
+    and the ``permutation`` of each epoch).  ``trial(i)`` hands out trial
+    ``i`` of the same arrays, for the modules that are not stacked."""
+
+    def __init__(self, draws, trials: int = 1, device="cpu"):
+        super().__init__(0, trials, device)
+        self.draws = {k: list(v) if isinstance(v, list) else [v] for k, v in draws.items()}
+
+    def _pop(self, name: str) -> torch.Tensor:
+        queue = self.draws[name]
+        x = torch.tensor(np.asarray(queue.pop(0)), device=self.device)
+        if not queue:
+            del self.draws[name]
+        return x
+
+    def normal(self, name: str, shape: Sequence[int]) -> torch.Tensor:
+        x = self._pop(name)
+        assert tuple(x.shape) == tuple(shape), (name, tuple(x.shape), tuple(shape))
+        return x
+
+    def permutation(self, n: int) -> torch.Tensor:
+        x = self._pop("permutation")
+        assert tuple(x.shape) == (self.trials, n), tuple(x.shape)
+        return x.long()
+
+    def trial(self, i: int):
+        outer = self
+
+        class _Trial:
+            def normal(self, name, shape):
+                return outer.normal(name, (outer.trials, *shape))[i]
+
+        return _Trial()

@@ -31,7 +31,6 @@ from rankaae_tpu_torch.train.facade import Trainer
 from rankaae_tpu_torch.train.trainer import RankAAETrainer
 from rankaae_tpu_torch.utils.checkpoint import load_model_bundle
 from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
-from rankaae_tpu_torch.utils.weights import to_jax
 from tests.test_torch_trainer import CFG as FC_CFG
 from tests.torch_parity import compare_batch, compare_validate, jax_init, make_data
 
@@ -81,13 +80,13 @@ def test_facade_writes_bundles_the_jax_package_reads(synthetic_csv, tmp_path):
     assert 0 <= state.best_epoch.item() <= 1 and 0 <= state.best_recon_epoch.item() <= 1
     # a state-dict snapshot reads as its modules do
     live = {k: m.state_dict() for k, m in tr.core.models.items()}
-    for got, ref in zip(to_jax(tr.core.models, live), to_jax(tr.core.models)):
+    for got, ref in zip(tr.core.export(0, live), tr.core.export(0)):
         jax.tree_util.tree_map(np.testing.assert_array_equal, got, ref)
     # the trackers' snapshots, not the live modules, went into their bundles
     for name, snapshot in (("best_tracked", state.best_state),
                            ("best_recon", state.best_recon_state)):
         params, stats, _, _ = load_model_bundle(str(tmp_path / f"{name}.mpk"))
-        ref_params, ref_stats = to_jax(tr.core.models, snapshot)
+        ref_params, ref_stats = tr.core.export(0, snapshot)
         for role in ("enc", "dec", "dis"):
             for got, ref in ((params[role], ref_params[role]), (stats[role], ref_stats[role])):
                 np.testing.assert_equal(got, ref)

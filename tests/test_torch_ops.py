@@ -2,7 +2,9 @@
 and config against the JAX package's.
 
 Tolerance: atol 1e-6 (float32 reductions of a few thousand terms taken in
-another order), except where a test states otherwise.
+another order), except where a test states otherwise.  The port's losses
+and statistics take a leading trial axis and return one value per trial:
+here T = 1 (``tests/test_torch_trials.py`` stacks several).
 """
 import dataclasses
 
@@ -42,13 +44,13 @@ def _spectra(seed, b=64, dim=256):
 
 def test_mse_and_bce():
     x, y = _spectra(0)
-    np.testing.assert_allclose(tl.mse(torch.tensor(x), torch.tensor(y)).item(),
+    np.testing.assert_allclose(tl.mse(torch.tensor(x)[None], torch.tensor(y)[None]).item(),
                                float(jl.mse(x, y)), atol=ATOL)
     logits = np.random.default_rng(1).normal(0, 3, size=(200,)).astype(np.float32)
     for target in (0.0, 1.0):
         t = np.full_like(logits, target)
         np.testing.assert_allclose(
-            tl.bce_with_logits(torch.tensor(logits), torch.tensor(t)).item(),
+            tl.bce_with_logits(torch.tensor(logits)[None], torch.tensor(t)[None]).item(),
             float(jl.bce_with_logits(logits, t)), atol=ATOL)
 
 
@@ -56,7 +58,8 @@ def test_mse_and_bce():
 def test_recon_loss_and_gradient(scale):
     spec_in, spec_out = _spectra(2)
     out_t = torch.tensor(spec_out, requires_grad=True)
-    loss = tl.recon_loss(torch.tensor(spec_in), out_t, scale=scale, scale_weight=0.3)
+    loss = tl.recon_loss(torch.tensor(spec_in)[None], out_t[None], scale=scale,
+                        scale_weight=0.3)
     loss.backward()
     f = lambda o: jl.recon_loss(spec_in, o, scale=scale, scale_weight=0.3)
     l_ref, g_ref = jax.value_and_grad(f)(jnp.asarray(spec_out))
@@ -67,7 +70,7 @@ def test_recon_loss_and_gradient(scale):
 def test_smoothness_loss_and_gradient():
     _, spec = _spectra(3)
     t = torch.tensor(spec, requires_grad=True)
-    loss = tl.smoothness_loss(t, 17)
+    loss = tl.smoothness_loss(t[None], 17)
     loss.backward()
     l_ref, g_ref = jax.value_and_grad(lambda s: jl.smoothness_loss(s, 17))(jnp.asarray(spec))
     np.testing.assert_allclose(loss.item(), float(l_ref), atol=ATOL)
@@ -94,7 +97,7 @@ def test_spearman_statistics():
     np.testing.assert_allclose(
         ts.spearman_rho(torch.tensor(z[:, 0]), torch.tensor(z[:, 1])).item(),
         float(js.spearman_rho(z[:, 0], z[:, 1])), atol=ATOL)
-    np.testing.assert_allclose(ts.max_interstyle_spearman(torch.tensor(z)).item(),
+    np.testing.assert_allclose(ts.max_interstyle_spearman(torch.tensor(z)[None]).item(),
                                float(js.max_interstyle_spearman(z)), atol=ATOL)
 
 
@@ -103,7 +106,7 @@ def test_shapiro_statistics():
     for col in range(z.shape[1]):
         np.testing.assert_allclose(ts.shapiro_w(torch.tensor(z[:, col])).item(),
                                    float(js.shapiro_w(z[:, col])), atol=ATOL)
-    np.testing.assert_allclose(ts.min_style_shapiro(torch.tensor(z)).item(),
+    np.testing.assert_allclose(ts.min_style_shapiro(torch.tensor(z)[None]).item(),
                                float(js.min_style_shapiro(z)), atol=ATOL)
 
 

@@ -9,8 +9,9 @@
   by more than 1e-3.
 * A CPU smoke of the ``Trainer.from_data(...).train()`` facade.
 * The package rules: nothing of ``jax``, ``rankaae_tpu`` or ``msgpack`` is
-  imported, the entry points (training and serving) do not fall back to the
-  CPU, and the trainer refuses the paths it does not implement yet.
+  imported (the runner and ``train_sc`` included), the entry points
+  (training and serving) do not fall back to the CPU, and the trainer and
+  ``train_sc`` refuse the paths they do not implement yet.
 """
 import ast
 import os
@@ -19,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+import yaml
 
 import jax
 import torch
@@ -26,6 +28,7 @@ import torch
 from rankaae_tpu.train.trainer import RankAAETrainer as JaxTrainer
 from rankaae_tpu.utils.config import TrainConfig as JaxTrainConfig
 
+from rankaae_tpu_torch.cli import train_sc
 from rankaae_tpu_torch.models.inference import InferenceModel
 from rankaae_tpu_torch.models.registry import build_autoencoder
 from rankaae_tpu_torch.serve import BatchedInference, main as serve_main
@@ -109,16 +112,27 @@ def test_entry_points_default_to_cuda(synthetic_csv, monkeypatch, tmp_path):
         serve_main([bundle, synthetic_csv, str(tmp_path / "out")])
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     for kw in ({"protocol": "joint"}, {"protocol": "fused"}, {"flat_optim": True},
                {"activation_dtype": "bfloat16"}, {"ae_form": "qved"}):
         with pytest.raises(NotImplementedError):
             RankAAETrainer(TrainConfig(**{**CFG, **kw}), n_train=B, n_val=N_VAL, device="cpu")
+    # train_sc: resumable runs (ROADMAP item 4) and recalibration (item 5)
+    for flags, kw, item in ((["--checkpoint-every", "5"], {}, "item 4"),
+                            (["--resume"], {}, "item 4"),
+                            ([], {"bn_recalibrate": True}, "item 5"),
+                            ([], {"amp_recalibrate": True}, "item 5")):
+        with open(tmp_path / "cfg.yaml", "w") as f:
+            yaml.safe_dump({**CFG, **kw}, f)
+        with pytest.raises(NotImplementedError, match=item):
+            train_sc.main(["-c", "cfg.yaml", "-w", str(tmp_path), "--device", "cpu", *flags])
 
 
 def test_package_imports_nothing_of_jax():
     code = (
         "import importlib, pkgutil, sys\n"
+        "import rankaae_tpu_torch.parallel.trials, rankaae_tpu_torch.cli.train_sc\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'rankaae_tpu')]\n"
         "import rankaae_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"

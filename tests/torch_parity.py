@@ -3,9 +3,10 @@ against the JAX package.
 
 One faithful ``_train_batch`` of ``rankaae_tpu_torch`` is held against
 ``jax.jit(RankAAETrainer._train_batch)`` from the same weights (carried over
-by the weight bridge) and the same random draws: the JAX keys of the batch
-are recreated with ``jax.random.split(rng, 17)`` and the three draws the
-batch consumes are handed to the port's sampler (:class:`FixedDraws`).
+by the weight bridge into trial 0 of its stacked modules) and the same
+random draws: the JAX keys of the batch are recreated with
+``jax.random.split(rng, 17)`` and the three draws the batch consumes are
+handed to the port's sampler (:class:`FixedDraws`).
 Dropout and the discriminator noise are 0 in every compared config, so
 nothing else is drawn.  Both optimizers start the batch from second moments
 of :data:`NU0`, not 0: from zero moments Adam's first step is
@@ -27,25 +28,12 @@ from rankaae_tpu.train.trainer import TrialData as JaxTrialData
 
 from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes
 from rankaae_tpu_torch.train.trainer import TrialData
-from rankaae_tpu_torch.utils.sampler import Sampler
-from rankaae_tpu_torch.utils.weights import from_jax, to_jax
+from rankaae_tpu_torch.utils.sampler import FixedDraws
+from rankaae_tpu_torch.utils.weights import from_jax
 
 NU0 = 1e-8      # second moments both optimizers start the batch from
 BATCH_ATOL, VAL_ATOL = 1e-4, 1e-5
 LOSSES = ("dis", "gen", "aux", "recon", "smooth", "mi")
-
-
-class FixedDraws(Sampler):
-    """A sampler that hands out given arrays for the named draws."""
-
-    def __init__(self, draws):
-        super().__init__(0, "cpu")
-        self.draws = draws
-
-    def normal(self, name, shape):
-        x = self.draws.pop(name)
-        assert tuple(x.shape) == tuple(shape), (name, x.shape, shape)
-        return torch.tensor(np.asarray(x))
 
 
 def make_data(seed, n):
@@ -58,13 +46,12 @@ def jax_init(jtr, seed=0):
     return jax.jit(jtr.init_state)(jax.random.PRNGKey(seed))
 
 
-def load_jax_weights(ttr, jstate):
-    """Load the JAX state's weights and running statistics into the port's
-    modules."""
-    sds = from_jax(jax.tree_util.tree_map(np.asarray, jstate.params),
-                   jax.tree_util.tree_map(np.asarray, jstate.batch_stats))
-    for key, m in ttr.models.items():
-        m.load_state_dict(sds[key])
+def load_jax_weights(ttr, jstate, trial=0):
+    """Load the JAX state's weights and running statistics into trial
+    ``trial`` of the port's modules."""
+    ttr.load_trial_state_dicts(trial, from_jax(
+        jax.tree_util.tree_map(np.asarray, jstate.params),
+        jax.tree_util.tree_map(np.asarray, jstate.batch_stats)))
 
 
 def _flat(tree):
@@ -89,20 +76,15 @@ def compare_batch(jtr, jstate, ttr, tstate, spec, aux, alpha=0.3, epoch=0, seed=
         jstate, jnp.asarray(spec), jnp.asarray(aux), jnp.float32(alpha), jnp.int32(epoch), rng)
 
     cfg = jtr.cfg
-    keys = jax.random.split(rng, 17)      # trainer.py:315-319,335,387,462
-    sampler = FixedDraws({
-        "spec_noise": jax.random.normal(keys[0], spec.shape),
-        "z_real": jax.random.normal(keys[1], (cfg.batch_size, cfg.nstyle)),
-        "z_sample": jax.random.normal(keys[12], (spec.shape[0], cfg.nstyle)),
-    })
-    _, tlosses = ttr._train_batch(tstate, torch.tensor(spec), torch.tensor(aux),
+    sampler = FixedDraws(batch_draws(cfg, rng, spec.shape[0]))
+    _, tlosses = ttr._train_batch(tstate, torch.tensor(spec)[None], torch.tensor(aux)[None],
                                   alpha, epoch, sampler)
     assert not sampler.draws             # all three draws were consumed
 
     for name in LOSSES:
         np.testing.assert_allclose(tlosses[name].item(), float(jlosses[name]),
                                    atol=BATCH_ATOL, err_msg=name)
-    params, stats = to_jax(ttr.models)
+    params, stats = ttr.export(0)
     got = _flat({"params": params, "stats": stats})
     ref = _flat({"params": new_jstate.params, "stats": new_jstate.batch_stats})
     assert sorted(got) == sorted(ref)
@@ -115,6 +97,24 @@ def compare_batch(jtr, jstate, ttr, tstate, spec, aux, alpha=0.3, epoch=0, seed=
     return len(ref), np.concatenate(moved), tlosses, jlosses
 
 
+def batch_draws(cfg, rng, b):
+    """The draws of one JAX batch of ``b`` rows from the batch key ``rng``
+    (``trainer.py:315-319,335,387,462``), each with a trial axis of 1."""
+    keys = jax.random.split(rng, 17)
+    return {"spec_noise": np.asarray(jax.random.normal(keys[0], (b, cfg.dim_in)))[None],
+            "z_real": np.asarray(jax.random.normal(keys[1], (cfg.batch_size, cfg.nstyle)))[None],
+            "z_sample": np.asarray(jax.random.normal(keys[12], (b, cfg.nstyle)))[None]}
+
+
+def validate_draws(cfg, rng, n_val):
+    """The draws of a JAX validation from its key ``rng``
+    (``trainer.py:869,886-913``), each with a trial axis of 1."""
+    k1, k2 = jax.random.split(rng)
+    n_real = cfg.batch_size if cfg.gradient_reversal else n_val
+    return {"z_val": np.asarray(jax.random.normal(k1, (n_val, cfg.nstyle)))[None],
+            "z_real_val": np.asarray(jax.random.normal(k2, (n_real, cfg.nstyle)))[None]}
+
+
 def compare_validate(jtr, jstate, ttr, tstate, spec, aux, alpha=0.25, seed=7):
     """``_validate`` on both stacks from ``jstate``'s weights (loaded into
     the port's modules here), on ``spec``/``aux`` as the validation split;
@@ -124,14 +124,86 @@ def compare_validate(jtr, jstate, ttr, tstate, spec, aux, alpha=0.25, seed=7):
     rng = jax.random.PRNGKey(seed)
     jdata = JaxTrialData(*(jnp.asarray(a) for a in (spec, aux, spec, aux)))
     z_ref, ref = jtr._validate(jstate, jdata, jnp.float32(alpha), rng)
-    k1, k2 = jax.random.split(rng)
-    n_real = cfg.batch_size if cfg.gradient_reversal else jtr.n_val
-    sampler = FixedDraws({"z_val": jax.random.normal(k1, (jtr.n_val, cfg.nstyle)),
-                          "z_real_val": jax.random.normal(k2, (n_real, cfg.nstyle))})
+    sampler = FixedDraws(validate_draws(cfg, rng, jtr.n_val))
     tdata = TrialData(*(torch.tensor(a) for a in (spec, aux, spec, aux)))
     z, got = ttr._validate(tstate, tdata, alpha, sampler)
     assert not sampler.draws
-    np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), atol=VAL_ATOL)
+    np.testing.assert_allclose(z[0].numpy(), np.asarray(z_ref), atol=VAL_ATOL)
     for name, value in ref.items():
         np.testing.assert_allclose(got[name].item(), float(value), atol=VAL_ATOL, err_msg=name)
     return got
+
+
+def epoch_draws(jtr, rng, epoch):
+    """Every draw of one JAX ``epoch_step`` of a state whose key is ``rng``
+    (``trainer.py:938-964``): the epoch's permutation from
+    ``fold_in(rng, epoch)``, each batch's draws from
+    ``fold_in(k_epoch, 1000 + i)`` and the validation's from the split's
+    second key; each with a trial axis of 1, as :class:`FixedDraws` takes
+    them."""
+    cfg = jtr.cfg
+    k_epoch = jax.random.fold_in(rng, epoch)
+    k_perm, k_val = jax.random.split(k_epoch)
+    draws = {"permutation": [np.asarray(jax.random.permutation(k_perm, jtr.n_train))[None]]}
+    for i, start in enumerate(range(0, jtr.n_train, cfg.batch_size)):
+        b = min(cfg.batch_size, jtr.n_train - start)
+        for k, v in batch_draws(cfg, jax.random.fold_in(k_epoch, 1000 + i), b).items():
+            draws.setdefault(k, []).append(v)
+    for k, v in validate_draws(cfg, k_val, jtr.n_val).items():
+        draws[k] = [v]
+    return draws
+
+
+def start_from_jax(jtr, jstate, ttr, tstate, trial=0):
+    """Both stacks from ``jstate``'s weights (loaded into trial ``trial`` of
+    the port's modules, the trackers' snapshots retaken) and second moments
+    of :data:`NU0`; returns the JAX state."""
+    load_jax_weights(ttr, jstate, trial)
+    tstate.best_state = ttr._snapshot()
+    tstate.best_recon_state = ttr._snapshot()
+    for o in tstate.opt.values():
+        for v in o.nu:
+            v.fill_(NU0)
+    return jstate._replace(opt={
+        k: o._replace(nu=jax.tree_util.tree_map(lambda x: jnp.full_like(x, NU0), o.nu))
+        for k, o in jstate.opt.items()})
+
+
+def compare_epoch(jlog, jstate, ttr, tlog, tstate, trial=0, atol=BATCH_ATOL):
+    """One epoch's results of trial ``trial`` of the port against the JAX
+    epoch's (``jlog``/``jstate`` of one trial): every log key, both
+    trackers, the plateau states, and every leaf of the weights and of both
+    trackers' snapshots.  Returns the largest difference seen."""
+    worst = 0.0
+
+    def close(got, ref, what):
+        nonlocal worst
+        got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+        assert got.shape == ref.shape, (what, got.shape, ref.shape)
+        if got.size:
+            worst = max(worst, float(np.abs(got - ref).max()))
+        np.testing.assert_allclose(got, ref, atol=atol, rtol=0, err_msg=what)
+
+    assert sorted(tlog) == sorted(jlog)
+    assert tlog["epoch"] == int(jlog["epoch"])
+    for k in tlog:
+        if k != "epoch":
+            close(tlog[k][trial].numpy(), jlog[k], f"log {k}")
+    for k in ("best_epoch", "best_combined", "faithful_best", "best_recon_epoch", "best_recon"):
+        close(getattr(tstate, k)[trial].numpy(), getattr(jstate, k), k)
+    for name, sched in tstate.sched.items():
+        for field in ("lr", "best", "num_bad"):
+            close(getattr(sched, field)[trial].numpy(), getattr(jstate.sched[name], field),
+                  f"sched {name} {field}")
+    for snapshot, params, stats in ((None, jstate.params, jstate.batch_stats),
+                                    (tstate.best_state, jstate.best_params,
+                                     jstate.best_batch_stats),
+                                    (tstate.best_recon_state, jstate.best_recon_params,
+                                     jstate.best_recon_batch_stats)):
+        tparams, tstats = ttr.export(trial, snapshot)
+        got = _flat({"params": tparams, "stats": tstats})
+        ref = _flat({"params": params, "stats": stats})
+        assert sorted(got) == sorted(ref)
+        for name, value in ref.items():
+            close(got[name], value, name)
+    return worst
