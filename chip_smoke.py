@@ -65,7 +65,24 @@ Phases (any failure exits non-zero and prints no result):
    steady-epoch spectra/s per GPU (T * n_train / epoch seconds) of
    ``example/fix_config.yaml`` at T 1, 8 and 32, and the launches, device
    time and idle share of a profiled epoch at T 1 and 32
-   (``tools/profile_epoch.py``).
+   (``tools/profile_epoch.py``);
+9. the rest of the user's pipeline — (a) resume: ``train_sc`` of
+   ``example/fix_config.yaml`` (its 8 trials, full width, ``alpha_flat_step``
+   ~ 0 so that the GRL ramp does not depend on ``max_epoch``) uncut for 4
+   epochs, and cut at 2 (``--checkpoint-every 2``, ``max_epoch`` 2) then
+   ``--resume``d to 4: every ``losses.csv`` and every final, best and
+   best-recon bundle with its manifest bit-identical, K1 and K2 launched
+   once a step in each run, the seconds of each checkpoint write and of the
+   resume's load; (b) recalibration: ``train_sc`` of the normal form (2
+   trials, 3 epochs) with ``bn_recalibrate`` and ``amp_recalibrate``: every
+   manifest's ``amp_gain`` in [0.5, 2], exact K1, K2 and K3 launches (K3 in
+   the validations and in each bundle's ``amplitude_gain``), and
+   ``recalibrate_batch_stats`` (at dropout 0) and ``amplitude_gain`` of one
+   bundle card vs CPU; (c) the report: ``generate`` over 8a's tree (FC, 8
+   trials) and 9b's (normal form, through K3) on the card, then on the CPU
+   over copies: every score of ``report.json``, the ranks and the spectra
+   dumps, the wall time of each report and its exact K3 launches.  Where
+   matplotlib is not installed the reports draw no figure and say so.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
@@ -83,7 +100,12 @@ ill-conditioned, so they are twice the spread a 1e-7 weight perturbation
 shows on the CPU alone (``rankaae_tpu_torch/tools/batch_spread.py``), and
 phase 4's where that is larger; phase 8b phase 4's tolerances, on the six
 training losses of both epochs and on every leaf, and every leaf within 1%
-of how far the weights moved.
+of how far the weights moved; phase 9a bit-identical; 9b the recalibrated
+statistics within 1e-4 relative to max(1, |CPU|) and the gain within 1e-4;
+9c every score of the report within 1e-3 and ``Reconstruct Err`` (rounded
+to 4 decimals) within 1e-4 and one rounding unit, the ranks identical unless
+two trials' scores lie within 1e-3 (they are printed then), and the best
+model's styles and reconstructions within 1e-4, as phase 6.
 """
 from __future__ import annotations
 
@@ -844,6 +866,251 @@ def trial_throughput(torch, cfg, splits, card):
     return out
 
 
+# phase 9: resume (9a), recalibration (9b) and the report (9c)
+RESUME_EPOCHS, RESUME_CUT = 4, 2
+RECAL_TRIALS, RECAL_EPOCHS = 2, 3
+NORMAL_FUSED_BLOCKS = 4          # the normal decoder's stride-1 c_in == c_out blocks
+RECAL_ATOL = SERVE_ATOL          # card vs CPU, relative to max(1, |CPU|) for the statistics
+REPORT_ATOL = 1e-3               # card vs CPU on every score of <output_name>.json
+# Reconstruct Err is rounded to 4 decimals: 1e-4 and one unit in the last place
+RECON_ERR_ATOL = 2e-4 + 1e-9
+BUNDLES = ("final.mpk", "best_tracked.mpk", "best_recon.mpk")
+
+
+def work_dir(root, name, csv, cfg_path, **overrides):
+    """``root/name`` holding ``cfg.yaml`` (``cfg_path`` with ``overrides``)
+    and a copy of the data ``csv`` under the config's ``data_file``."""
+    import shutil
+
+    import yaml
+
+    work = os.path.join(root, name)
+    os.makedirs(work, exist_ok=True)
+    with open(cfg_path) as f:
+        raw = yaml.safe_load(f)
+    raw.update(overrides)
+    with open(os.path.join(work, "cfg.yaml"), "w") as f:
+        yaml.safe_dump(raw, f)
+    if not os.path.exists(os.path.join(work, raw["data_file"])):
+        shutil.copy(csv, os.path.join(work, raw["data_file"]))
+    return work
+
+
+def run_train_sc(torch, kc, fb, work, device, *flags):
+    """``train_sc`` on ``work``: its wall seconds and launches (counts set
+    to 0 just before)."""
+    from rankaae_tpu_torch.cli import train_sc
+
+    kc.fwd_launches = kc.bwd_launches = fb.launches = 0
+    t0 = time.perf_counter()
+    train_sc.main(["-c", "cfg.yaml", "-w", work, "--device", device, *flags])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, {"kendall_pair_sums": kc.fwd_launches,
+                                      "kendall_grad_rows": kc.bwd_launches,
+                                      "fused_block": fb.launches}
+
+
+def bundle_diff(np, a, b):
+    """Largest |difference| over the leaves of two bundles."""
+    from rankaae_tpu_torch.utils.checkpoint import load_model_bundle
+
+    def leaves(tree):
+        return [x for v in tree.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+
+    pa, sa, _, _ = load_model_bundle(a)
+    pb, sb, _, _ = load_model_bundle(b)
+    return max(float(np.max(np.abs(x - y))) for x, y in zip(leaves({"p": pa, "s": sa}),
+                                                             leaves({"p": pb, "s": sb})))
+
+
+def resume_on_card(torch, np, kc, fb, root, csv, cfg_path, card, device="cuda"):
+    """Phase 9a: ``train_sc`` of ``cfg_path`` (its 8 trials, full width,
+    ``alpha_flat_step`` ~ 0 so that the GRL ramp does not depend on
+    ``max_epoch``) uncut for RESUME_EPOCHS epochs, and cut at RESUME_CUT
+    (``--checkpoint-every``, ``max_epoch`` RESUME_CUT) then resumed
+    (``--resume``) to RESUME_EPOCHS.  Every ``losses.csv`` and every bundle
+    must be bit-identical.  Returns the launches of the three runs and the
+    seconds of each checkpoint write and of the resume's load."""
+    from rankaae_tpu_torch.parallel import trials as port_trials
+
+    flat = {"alpha_flat_step": 1e-9}
+    whole = work_dir(root, "whole", csv, cfg_path, max_epoch=RESUME_EPOCHS, **flat)
+    cut = work_dir(root, "cut", csv, cfg_path, max_epoch=RESUME_CUT, **flat)
+    seconds = {"write": [], "load": []}
+    real_write, real_load = port_trials._checkpoint, port_trials._resume
+
+    def timed(kind, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            seconds[kind].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    port_trials._checkpoint = timed("write", real_write)
+    port_trials._resume = timed("load", real_load)
+    try:
+        runs = {"uncut": run_train_sc(torch, kc, fb, whole, device)}
+        runs["cut"] = run_train_sc(torch, kc, fb, cut, device, "--checkpoint-every",
+                                   str(RESUME_CUT))
+        work_dir(root, "cut", csv, cfg_path, max_epoch=RESUME_EPOCHS, **flat)
+        runs["resumed"] = run_train_sc(torch, kc, fb, cut, device, "--resume")
+    finally:
+        port_trials._checkpoint, port_trials._resume = real_write, real_load
+    state_mb = os.path.getsize(os.path.join(cut, "train_state", "trial_state.mpk")) / 2 ** 20
+    jobs = sorted(os.listdir(os.path.join(whole, "training")))
+    diffs = {}
+    for job in jobs:
+        a, b = (os.path.join(w, "training", job) for w in (whole, cut))
+        for name in ("losses.csv",) + BUNDLES + tuple(n + ".json" for n in BUNDLES):
+            with open(os.path.join(a, name), "rb") as fa, open(os.path.join(b, name), "rb") as fb_:
+                if fa.read() != fb_.read():
+                    diffs[f"{job}/{name}"] = bundle_diff(
+                        np, os.path.join(a, name), os.path.join(b, name)) \
+                        if name.endswith(".mpk") else "differs"
+    for name, (sec, launches) in runs.items():
+        print(f"9a {name}: {sec:.2f} s wall, K1/K2 launches {launches['kendall_pair_sums']}/"
+              f"{launches['kendall_grad_rows']} [{card}]")
+    print(f"9a: {len(jobs)} trials, uncut {RESUME_EPOCHS} epochs vs cut at {RESUME_CUT} and "
+          f"resumed: {'bit-identical' if not diffs else 'DIFFERENT ' + json.dumps(diffs)} "
+          f"(losses.csv and {len(BUNDLES)} bundles with their manifests, every trial); "
+          f"checkpoint writes {[round(x, 4) for x in seconds['write']]} s, resume load "
+          f"{[round(x, 4) for x in seconds['load']]} s, trial_state.mpk {state_mb:.2f} MiB "
+          f"[{card}]")
+    assert not diffs, diffs
+    return runs, seconds
+
+
+def recalibrated_trials(torch, np, kc, fb, root, csv, cfg_path, card, device="cuda"):
+    """Phase 9b: ``train_sc`` of the normal form (RECAL_TRIALS trials,
+    RECAL_EPOCHS epochs) with ``bn_recalibrate`` and ``amp_recalibrate``:
+    every manifest's ``amp_gain`` in [0.5, 2], and both functions on one
+    bundle card vs CPU (the recalibration at dropout 0: the card's and the
+    CPU's generators draw different masks).  Returns the work dir and the
+    run's launches."""
+    from rankaae_tpu_torch.data.dataset import load_split_arrays
+    from rankaae_tpu_torch.models.recalibrate import (amplitude_gain, amplitude_ratio,
+                                                      recalibrate_batch_stats)
+    from rankaae_tpu_torch.utils.checkpoint import load_model_bundle
+
+    work = work_dir(root, "recal", csv, cfg_path, ae_form="normal", trials=RECAL_TRIALS,
+                    max_epoch=RECAL_EPOCHS, bn_recalibrate=True, amp_recalibrate=True)
+    sec, launches = run_train_sc(torch, kc, fb, work, device)
+    gains = []
+    for job in sorted(os.listdir(os.path.join(work, "training"))):
+        job_dir = os.path.join(work, "training", job)
+        paths = [os.path.join(job_dir, n) for n in BUNDLES] + [
+            os.path.join(job_dir, "checkpoints", n)
+            for n in os.listdir(os.path.join(job_dir, "checkpoints")) if n.endswith(".mpk")]
+        for path in paths:
+            gain = load_model_bundle(path)[3]["amp_gain"]
+            assert 0.5 <= gain <= 2.0, (path, gain)
+            gains.append(gain)
+    params, stats, cfg, _ = load_model_bundle(os.path.join(work, "training", "job_1",
+                                                           "final.mpk"))
+    train = load_split_arrays(csv, (cfg.train_ratio, cfg.validation_ratio, cfg.test_ratio),
+                              cfg.n_aux)["train"].spec
+    devices = (device, "cpu")
+    recal = dict(zip(("card", "cpu"), (
+        recalibrate_batch_stats(cfg.replace(dropout_rate=0.0), params, stats, train, device=d)
+        for d in devices)))
+    gain = dict(zip(("card", "cpu"), (amplitude_gain(cfg, params, stats, train, device=d)
+                                      for d in devices)))
+    # the unclipped ratio: a gain at a clip bound says nothing of agreement
+    ratio = dict(zip(("card", "cpu"), (amplitude_ratio(cfg, params, stats, train, device=d)
+                                       for d in devices)))
+
+    def leaves(tree):
+        return [x for v in tree.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+
+    pairs = list(zip(leaves(recal["card"]), leaves(recal["cpu"])))
+    stat_abs = max(float(np.max(np.abs(a - b))) for a, b in pairs)
+    stat_rel = max(float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b)))) for a, b in pairs)
+    gain_err = max(abs(gain["card"] - gain["cpu"]), abs(ratio["card"] - ratio["cpu"]))
+    print(f"9b: normal form, {RECAL_TRIALS} trials, {RECAL_EPOCHS} epochs, bn_recalibrate and "
+          f"amp_recalibrate, {sec:.2f} s wall; amp_gain of {len(gains)} bundles in "
+          f"[{min(gains):.4f}, {max(gains):.4f}]; launches {launches}; job_1 final.mpk card vs "
+          f"CPU: recalibrated statistics max {stat_abs:.3g} (relative to max(1, |CPU|) "
+          f"{stat_rel:.3g}, atol {RECAL_ATOL}), amp_gain {gain['card']:.6f} vs "
+          f"{gain['cpu']:.6f}, unclipped ratio {ratio['card']:.6f} vs {ratio['cpu']:.6f} "
+          f"({gain_err:.3g}, atol {RECAL_ATOL}) [{card}]")
+    assert stat_rel <= RECAL_ATOL and gain_err <= RECAL_ATOL, (stat_rel, gain_err)
+    return work, launches
+
+
+def report_scores(report):
+    """Every number of a report's JSON by path, and its jobs in rank order."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        elif isinstance(node, (int, float)) and not isinstance(node, bool):
+            out[path] = float(node)
+
+    walk(report, "")
+    return out, list(report)
+
+
+def report_card_vs_cpu(torch, np, fb, work, cpu_work, label, card, figures, device="cuda"):
+    """Phase 9c on one tree: ``generate`` on the card, then on the CPU over a
+    copy at ``cpu_work``; every score of the JSON within REPORT_ATOL
+    (Reconstruct Err within RECON_ERR_ATOL) and the same ranks, unless two
+    trials' scores lie within the tolerance.  Returns the card run's K3
+    launches and both walls."""
+    import shutil
+
+    from rankaae_tpu_torch.report.generate_report import generate
+    from rankaae_tpu_torch.utils.config import Parameters
+
+    shutil.copytree(work, cpu_work)
+    walls, reports = {}, {}
+    for side, d, w in (("card", device, work), ("cpu", "cpu", cpu_work)):
+        fb.launches = 0
+        t0 = time.perf_counter()
+        generate(w, Parameters.from_yaml(os.path.join(w, "cfg.yaml")), device=d,
+                 figures=figures and side == "card")
+        if side == "card":
+            if d == "cuda":
+                torch.cuda.synchronize()
+            k3 = fb.launches
+        walls[side] = time.perf_counter() - t0
+        with open(os.path.join(w, "report.json")) as f:
+            reports[side] = json.load(f)
+    (got, ranked), (ref, ref_ranked) = (report_scores(reports[d]) for d in ("card", "cpu"))
+    assert sorted(got) == sorted(ref), (label, sorted(set(got) ^ set(ref)))
+    worst = {"score": 0.0, "recon_err": 0.0}
+    for path, value in ref.items():
+        kind = "recon_err" if "/Reconstruct Err" in path else "score"
+        err = abs(got[path] - value)
+        if not (np.isnan(err) and np.isnan(value)):
+            worst[kind] = max(worst[kind], err)
+            assert err <= (RECON_ERR_ATOL if kind == "recon_err" else REPORT_ATOL), \
+                (label, path, got[path], value)
+    near = []
+    if ranked != ref_ranked:
+        scores = {j: reports["cpu"][j]["Score"] for j in ref_ranked}
+        for a, b in zip(ranked, ref_ranked):
+            if a != b:
+                near.append((a, b, scores[a], scores[b]))
+                assert abs(scores[a] - scores[b]) <= REPORT_ATOL, (label, ranked, ref_ranked)
+    for ext in (".in", ".out", "_spec_in.txt", "_spec_out.txt", "_styles.txt"):
+        a, b = (np.loadtxt(os.path.join(w, "report" + ext)) for w in (work, cpu_work))
+        if ranked[0] == ref_ranked[0]:
+            assert np.abs(a - b).max() <= SERVE_ATOL, (label, ext, np.abs(a - b).max())
+    print(f"9c report of {label}: card {walls['card']:.2f} s wall, CPU {walls['cpu']:.2f} s; "
+          f"K3 launches {k3}; card vs CPU: scores max {worst['score']:.3g} (atol "
+          f"{REPORT_ATOL}), Reconstruct Err max {worst['recon_err']:.3g} (atol 1e-4 + one "
+          f"rounding unit); ranks {'identical' if not near else 'swapped within tolerance ' + json.dumps(near)}: "
+          f"{ranked} [{card}]")
+    return k3, walls
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -975,8 +1242,9 @@ def main() -> int:
 
     # ---- 8. several trials at once -------------------------------------- #
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_trials_") as tmp:
-        trial_launches = train_trials(torch, np, kc, cfg_path, tmp, card, expect)
+    trials_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_trials_")   # 9c reports it
+    tmp8 = trials_dir.name
+    trial_launches = train_trials(torch, np, kc, cfg_path, tmp8, card, expect)
     print(f"8a: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
@@ -1008,12 +1276,62 @@ def main() -> int:
     print(f"8c: {time.perf_counter() - t0:.1f} s; phases 1-8: "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # ---- 9. resume, recalibration and the report ------------------------ #
+    import importlib.util
+
+    figures = all(importlib.util.find_spec(m) for m in ("matplotlib", "seaborn"))
+    with trials_dir, tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as tmp9:
+        csv8 = os.path.join(tmp8, Parameters.from_yaml(cfg_path).get("data_file"))
+        t0 = time.perf_counter()
+        resume_runs, _ = resume_on_card(torch, np, kc, fb, tmp9, csv8, cfg_path, card)
+        per_epoch = {"kendall_pair_sums": n_batch + 1, "kendall_grad_rows": n_batch,
+                     "fused_block": 0}
+        for name, epochs in (("uncut", RESUME_EPOCHS), ("cut", RESUME_CUT),
+                             ("resumed", RESUME_EPOCHS - RESUME_CUT)):
+            want = {k: epochs * v for k, v in per_epoch.items()}
+            assert resume_runs[name][1] == want, (name, resume_runs[name][1], want)
+        print(f"9a: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        recal_work, recal_launches = recalibrated_trials(torch, np, kc, fb, tmp9, csv8,
+                                                         cfg_path, card)
+        # each wave of one: the validations' two eval-mode decodes, then one
+        # amplitude_gain reconstruction of each of the three bundles
+        want = {"kendall_pair_sums": RECAL_TRIALS * RECAL_EPOCHS * (n_batch + 1),
+                "kendall_grad_rows": RECAL_TRIALS * RECAL_EPOCHS * n_batch,
+                "fused_block": RECAL_TRIALS * (RECAL_EPOCHS * 2 + 3) * NORMAL_FUSED_BLOCKS}
+        assert recal_launches == want, (recal_launches, want)
+        print(f"9b: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        if not figures:
+            print("9c: matplotlib and seaborn are not installed here: the reports compute "
+                  "every number their figures show (the decoder sweeps included) and write "
+                  "every file but the PNGs; no figure was drawn")
+        report_k3 = {}
+        for label, work, jobs, blocks in (("8a's tree (FC, 8 trials)", tmp8, cfg.trials, 0),
+                                          ("9b's tree (normal form, 2 trials)", recal_work,
+                                           RECAL_TRIALS, NORMAL_FUSED_BLOCKS)):
+            k3, _ = report_card_vs_cpu(torch, np, fb, work,
+                                       os.path.join(tmp9, f"report_cpu_{len(report_k3)}"),
+                                       label, card, figures)
+            # one decode a trial's evaluation, then the best model's report:
+            # its evaluation, a sweep a style, and its reconstruction
+            want = blocks * (jobs + 1 + cfg.nstyle + 1)
+            assert k3 == want, (label, k3, want)
+            report_k3[label] = k3
+        print(f"9c: {time.perf_counter() - t0:.1f} s; phases 1-9: "
+              f"{time.perf_counter() - t_start:.1f} s")
+
     for name in ("kendall_pair_sums", "kendall_grad_rows"):
-        launches[name] += conv_launches[name] + trial_launches[name]
-    k3_launches += conv_launches["fused_block"] + conv_launches["fused_block_serve"]
+        launches[name] += conv_launches[name] + trial_launches[name] + recal_launches[name] \
+            + sum(run[1][name] for run in resume_runs.values())
+    k3_launches += conv_launches["fused_block"] + conv_launches["fused_block_serve"] \
+        + recal_launches["fused_block"] + sum(report_k3.values())
     print(f"main-path launches: K1 {launches['kendall_pair_sums']}, K2 "
-          f"{launches['kendall_grad_rows']} (phase 3, 7a and 8a training), K3 {k3_launches} "
-          f"(phase 6 CLI, phase 7a training and CLI)")
+          f"{launches['kendall_grad_rows']} (phase 3, 7a, 8a, 9a and 9b training), K3 "
+          f"{k3_launches} (phase 6 CLI, 7a training and CLI, 9b training and amplitude "
+          f"gains, 9c reports)")
 
     rows = []
     for name, line in (("kendall_pair_sums", 49), ("kendall_grad_rows", 91)):
@@ -1038,7 +1356,7 @@ def main() -> int:
     print("library_ms: null — no single PyTorch call computes the Kendall pair sums "
           "or their gradient rows, nor the fused EncodingBlock (two convs, BNs, PReLUs, "
           "residual and excitation MLP); K3's row is at the serving shape C 4, B 1024; "
-          "launches are the main paths' (phases 3, 6, 7a and 8a)")
+          "launches are the main paths' (phases 3, 6, 7a, 8a, 9a, 9b and 9c)")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

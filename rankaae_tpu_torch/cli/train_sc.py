@@ -2,7 +2,8 @@
 (counterpart of ``rankaae_tpu/cli/train_sc.py:38-281``).
 
     python -m rankaae_tpu_torch.cli.train_sc -c cfg.yaml -w work_dir [--seed N]
-        [--lr-sweep LO,HI] [--device cuda|cpu] [--debug-nans] [--profile-dir DIR]
+        [--lr-sweep LO,HI] [--checkpoint-every N] [--resume] [--device cuda|cpu]
+        [--debug-nans] [--profile-dir DIR]
 
 Reads ``cfg.yaml`` (relative to the work dir) and its ``data_file``, trains
 ``trials`` trials of it at once on one device (``parallel/trials.py``), and
@@ -20,11 +21,19 @@ around the whole run: the trials train together, so a per-trial deadline
 and a total one coincide.  ``--lr-sweep LO,HI`` gives trial i the learning
 rates scaled by ``geomspace(LO, HI, trials)[i]``.  ``--debug-nans`` turns
 on autograd's anomaly detection; ``--profile-dir`` writes a
-``torch.profiler`` trace of the run there.  ``--checkpoint-every``,
-``--resume``, ``bn_recalibrate: true`` and ``amp_recalibrate: true`` are not
-ported yet and raise ``NotImplementedError``.  ``--device`` defaults to
-``cuda``, and the command raises without a CUDA device unless it is
-``cpu``.
+``torch.profiler`` trace of the run there.
+
+``--checkpoint-every N`` saves the whole train state into
+``work_dir/train_state`` every N epochs (``parallel/trials.py``), appends
+each segment's rows to every ``losses.csv`` as it ends, and writes a
+``checkpoints/`` bundle whenever a trial's best combined metric improved in
+the segment; ``--resume`` continues from ``work_dir/train_state``.
+``bn_recalibrate: true`` replaces the BatchNorm statistics of the final,
+best and best-recon models by one train-mode pass over the training split
+before any bundle is written, and ``amp_recalibrate: true`` writes each
+model's output gain into its manifest as ``amp_gain``
+(``models/recalibrate.py``).  ``--device`` defaults to ``cuda``, and the
+command raises without a CUDA device unless it is ``cpu``.
 """
 from __future__ import annotations
 
@@ -38,16 +47,51 @@ import numpy as np
 import torch
 
 from rankaae_tpu_torch.data.dataset import load_split_arrays
-from rankaae_tpu_torch.parallel.trials import TrialResults, run_trials
+from rankaae_tpu_torch.models.recalibrate import amplitude_gain, recalibrate_batch_stats
+from rankaae_tpu_torch.parallel.trials import SegmentBest, TrialResults, run_trials
 from rankaae_tpu_torch.train.trainer import TrialData
 from rankaae_tpu_torch.utils.checkpoint import save_model_bundle
 from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
 from rankaae_tpu_torch.utils.device import resolve_device
-from rankaae_tpu_torch.utils.logging import create_logger, write_losses_csv
+from rankaae_tpu_torch.utils.logging import append_losses_csv, create_logger, write_losses_csv
 
 
 def _timeout_handler(signum, frame):
     raise TimeoutError("Training Overtime!")
+
+
+def _checkpoint_bundle(job_dir: str, cfg: TrainConfig, params, stats, extra) -> None:
+    """The reference's checkpoint-directory layout (trainer.py:77,300):
+    ``checkpoints/epoch_<best epoch>_loss_<best combined>.mpk``."""
+    save_model_bundle(
+        os.path.join(job_dir, "checkpoints",
+                     f"epoch_{extra['best_epoch']:06d}_loss_{extra['best_combined']:07.6g}.mpk"),
+        params, stats, cfg, extra=extra)
+
+
+def _segment_writer(work_dir: str, cfg: TrainConfig):
+    """``run_trials``' ``on_segment`` for a checkpointed run
+    (``rankaae_tpu/cli/train_sc.py:70-117``): each segment's rows are
+    appended to every ``losses.csv`` (they survive a crash, and a resumed
+    run appends where the last segment stopped), and each trial whose best
+    combined metric improved in the segment gets a new ``checkpoints/``
+    bundle beside the earlier ones."""
+    last_best = {}
+
+    def on_segment(e0, e1, seg_logs, best: SegmentBest, trial_offset=0):
+        for i in range(seg_logs["epoch"].shape[0]):
+            g = trial_offset + i
+            job_dir = os.path.join(work_dir, "training", f"job_{g + 1}")
+            os.makedirs(job_dir, exist_ok=True)
+            append_losses_csv(os.path.join(job_dir, "losses.csv"),
+                              {k: v[i] for k, v in seg_logs.items() if k != "metrics"}, e0)
+            combined = float(best.combined[i])
+            if np.isfinite(combined) and combined < last_best.get(g, np.inf):
+                last_best[g] = combined
+                _checkpoint_bundle(job_dir, cfg, *best.weights(i),
+                                   {"best_epoch": int(best.epoch[i]), "best_combined": combined})
+
+    return on_segment
 
 
 def train_from_config(work_dir: str, params: Parameters, seed: int = 0,
@@ -55,14 +99,7 @@ def train_from_config(work_dir: str, params: Parameters, seed: int = 0,
                       device=None) -> TrialResults:
     """Train every trial of ``params`` and write the artifact tree into
     ``work_dir``.  Returns the results."""
-    if checkpoint_every or resume:
-        raise NotImplementedError(
-            "--checkpoint-every and --resume are not ported yet (ROADMAP queue 1, item 4)")
     cfg = TrainConfig.from_parameters(params)
-    for knob in ("bn_recalibrate", "amp_recalibrate"):
-        if getattr(cfg, knob):
-            raise NotImplementedError(
-                f"{knob}: true is not ported yet (ROADMAP queue 1, item 5)")
     dev = resolve_device(device)
     logger = create_logger(
         "Main training:", os.path.join(work_dir, "main_process_message.txt"), append=True)
@@ -82,44 +119,54 @@ def train_from_config(work_dir: str, params: Parameters, seed: int = 0,
         signal.signal(signal.SIGALRM, _timeout_handler)
         signal.alarm(timeout_s)
     start = time.time()
+    checkpoint_dir = os.path.join(work_dir, "train_state") \
+        if (checkpoint_every or resume) else None
     try:
-        results = run_trials(cfg, data, seed=seed, lr_scales=lr_scales, device=dev)
+        results = run_trials(
+            cfg, data, seed=seed, lr_scales=lr_scales, device=dev,
+            checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
+            on_segment=None if checkpoint_dir is None else _segment_writer(work_dir, cfg))
     finally:
         if alarm:
             signal.alarm(0)
     total = time.time() - start
 
+    snapshots = (("final_params", "final_batch_stats"), ("best_params", "best_batch_stats"),
+                 ("best_recon_params", "best_recon_batch_stats"))
     for i in range(results.n_trials):
         job_dir = os.path.join(work_dir, "training", f"job_{i + 1}")
         os.makedirs(job_dir, exist_ok=True)
         tr = results.trial(i)
+        if cfg.bn_recalibrate:
+            # full-train-split BatchNorm statistics for every saved model
+            for pk, sk in snapshots:
+                tr[sk] = recalibrate_batch_stats(cfg, tr[pk], tr[sk], data.train_spec,
+                                                 device=dev)
         job_logger = create_logger(f"subtraining_{i + 1}", os.path.join(job_dir, "messages.txt"))
         job_logger.info(f"Training started for trial {i + 1}.")
-        sweep_extra = {}
+        extras = [{"final_metrics": [float(x) for x in tr["final_metrics"]]},
+                  # the true best (min combined metric) and the best
+                  # reconstruction (min val recon MSE), as in the JAX CLI
+                  {"best_epoch": tr["best_epoch"], "best_combined": tr["best_combined"]},
+                  {"best_recon_epoch": tr["best_recon_epoch"],
+                   "best_recon_mse": tr["best_recon"]}]
         if lr_scales is not None:
-            sweep_extra["lr_scale"] = float(lr_scales[i])
+            for extra in extras:
+                extra["lr_scale"] = float(lr_scales[i])
             job_logger.info(f"lr_scale: {float(lr_scales[i]):.6g} (sweep over the trial axis)")
-        write_losses_csv(os.path.join(job_dir, "losses.csv"), tr["logs"])
-        save_model_bundle(
-            os.path.join(job_dir, "final.mpk"), tr["final_params"], tr["final_batch_stats"],
-            cfg, extra={"final_metrics": [float(x) for x in tr["final_metrics"]],
-                        **sweep_extra})
-        # the true best (min combined metric) and the best reconstruction
-        # (min val recon MSE), as in the JAX CLI
-        best_extra = {"best_epoch": tr["best_epoch"], "best_combined": tr["best_combined"],
-                      **sweep_extra}
-        save_model_bundle(os.path.join(job_dir, "best_tracked.mpk"), tr["best_params"],
-                          tr["best_batch_stats"], cfg, extra=best_extra)
-        save_model_bundle(
-            os.path.join(job_dir, "best_recon.mpk"), tr["best_recon_params"],
-            tr["best_recon_batch_stats"], cfg,
-            extra={"best_recon_epoch": tr["best_recon_epoch"],
-                   "best_recon_mse": tr["best_recon"], **sweep_extra})
-        # the reference's checkpoint-directory layout (trainer.py:77,300)
-        save_model_bundle(
-            os.path.join(job_dir, "checkpoints",
-                         f"epoch_{tr['best_epoch']:06d}_loss_{tr['best_combined']:07.6g}.mpk"),
-            tr["best_params"], tr["best_batch_stats"], cfg, extra=best_extra)
+        if cfg.amp_recalibrate:
+            # the one-scalar deployment gain InferenceModel divides out
+            for extra, (pk, sk) in zip(extras, snapshots):
+                extra["amp_gain"] = amplitude_gain(cfg, tr[pk], tr[sk], data.train_spec,
+                                                   device=dev)
+        if checkpoint_dir is None:
+            # (a checkpointed run wrote its rows segment by segment)
+            write_losses_csv(os.path.join(job_dir, "losses.csv"), tr["logs"])
+        for name, extra, (pk, sk) in zip(("final", "best_tracked", "best_recon"), extras,
+                                         snapshots):
+            save_model_bundle(os.path.join(job_dir, f"{name}.mpk"), tr[pk], tr[sk], cfg,
+                              extra=extra)
+        _checkpoint_bundle(job_dir, cfg, tr["best_params"], tr["best_batch_stats"], extras[1])
         job_logger.info(list(np.round(tr["final_metrics"], 6)))
         job_logger.info(
             f"Training finished. Time used: {total:.2f}s (concurrent with all trials).\n\n")
@@ -163,9 +210,9 @@ def main(argv=None):
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="Write a torch.profiler trace of the training run")
     parser.add_argument("--checkpoint-every", type=int, default=None,
-                        help="Save resumable training state every N epochs (not ported yet)")
+                        help="Save resumable training state every N epochs")
     parser.add_argument("--resume", action="store_true",
-                        help="Resume from <work_dir>/train_state (not ported yet)")
+                        help="Resume from <work_dir>/train_state if present")
     parser.add_argument("--lr-sweep", type=str, default=None, metavar="LO,HI",
                         help="Sweep the learning rates geometrically across the trials: "
                              "trial i's are scaled by geomspace(LO, HI, trials)[i]")

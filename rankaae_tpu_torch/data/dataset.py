@@ -1,5 +1,6 @@
 """Data layer: spectra CSV -> host arrays (counterpart of
-``rankaae_tpu/data/dataset.py:29-154``, pandas engine only).
+``rankaae_tpu/data/dataset.py:29-154``, pandas engine only), and the
+report stage's dataset facade :class:`AuxSpectraDataset`.
 
 Parity contract with the reference (``sc/clustering/dataloader.py:8-56``):
 
@@ -44,6 +45,31 @@ class SplitArrays:
 
     def __len__(self) -> int:
         return self.spec.shape[0]
+
+
+class AuxSpectraDataset:
+    """One split of the CSV with the reference dataset's surface
+    (``sc/clustering/dataloader.py:8-56``; ``rankaae_tpu/data/dataset.py:
+    51-75``): ``.spec``, ``.aux``, ``.grid``, ``.atom_index``,
+    ``.metadata``, ``__len__`` and ``__getitem__``."""
+
+    def __init__(self, csv_fn: str, split_portion: str,
+                 train_val_test_ratios: Tuple[float, float, float] = (0.7, 0.15, 0.15),
+                 n_aux: int = 0):
+        arrays = load_split_arrays(csv_fn, train_val_test_ratios, n_aux)[split_portion]
+        self.metadata = {"path": csv_fn, "train_test_val_split_ratio": train_val_test_ratios}
+        self.spec = arrays.spec
+        self.aux = arrays.aux
+        self.grid = arrays.grid
+        self.atom_index = arrays.atom_index
+
+    def __len__(self) -> int:
+        return self.spec.shape[0]
+
+    def __getitem__(self, idx):
+        if self.aux is None:
+            return self.spec[idx], np.array([0.0], dtype=np.float32)
+        return self.spec[idx], self.aux[idx]
 
 
 def read_csv(csv_fn: str, dtype=np.float32):

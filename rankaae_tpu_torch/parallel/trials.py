@@ -15,17 +15,29 @@ are more trials than ``max_resident``, they run in sequential waves
 (``trials.py:195-221``); the forms not stacked yet (the conv forms, the CNN
 discriminator) run one trial a wave.  One GPU: the ``trial_mesh`` and
 ``trial_dp_mesh`` layouts wait for several (ROADMAP queue 1, item 10).
+
+With ``checkpoint_dir``, a wave trains in segments of ``checkpoint_every``
+epochs and after each writes ``logs.npz`` (the logs so far),
+``trial_state.mpk`` (the whole train state and its epoch) and
+``progress.json``, in that order, into the checkpoint dir (into
+``wave_<w:03d>`` of it when there are several waves); a rerun resumes from
+them (``rankaae_tpu/parallel/trials.py:291-464``).  The state file names
+its own epoch and the logs are cut to it, so a crash between two of the
+writes never duplicates a row.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+import json
+import os
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from rankaae_tpu_torch.models.registry import stacks_trials
 from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrainState, TrialData, per_trial
+from rankaae_tpu_torch.utils.checkpoint import load_train_state, save_train_state
 from rankaae_tpu_torch.utils.config import TrainConfig
 from rankaae_tpu_torch.utils.device import resolve_device
 
@@ -87,6 +99,9 @@ def run_trials(
     lr_scales=None,
     sweep=None,
     device=None,
+    checkpoint_every: Optional[int] = None,
+    checkpoint_dir: Optional[str] = None,
+    on_segment: Optional[Callable] = None,
 ) -> TrialResults:
     """Train ``n_trials`` (default ``cfg.trials``) independent trials of
     ``cfg`` on ``device`` (default ``"cuda"``), at most ``max_resident``
@@ -95,7 +110,13 @@ def run_trials(
     ``lr_scales`` ((n_trials,)) multiplies each trial's learning rates;
     ``sweep`` maps keys of ``SWEEPABLE_HPARAMS`` (spec_noise, alpha_limit,
     alpha_flat_step) to per-trial values ((n_trials,)).  Both are validated
-    as the JAX runner validates them (``trials.py:122-191``)."""
+    as the JAX runner validates them (``trials.py:122-191``).
+
+    ``checkpoint_dir`` makes the run resumable (see the module docstring),
+    with a checkpoint every ``checkpoint_every`` epochs (default: at the
+    end).  ``on_segment(e0, e1, logs, best, trial_offset)`` is called after
+    each segment of epochs [e0, e1) with its host logs (T, e1 - e0, ...),
+    the wave's :class:`SegmentBest` and the wave's first trial."""
     n_trials = cfg.trials if n_trials is None else n_trials
     # the whole run's shapes; each wave's init_state refuses a key that is
     # not sweepable and lr_scales with AdaBound
@@ -107,15 +128,21 @@ def run_trials(
     dev = resolve_device(device)
     data = TrialData(*(x.to(dev) for x in dataclasses.astuple(data)))
     max_wave = max(1, int(max_resident)) if stacks_trials(cfg) else 1
+    n_waves = -(-n_trials // max_wave)
     waves = []
-    done = 0
-    while done < n_trials:
+    for w in range(n_waves):
+        done = w * max_wave
         take = min(max_wave, n_trials - done)
+        # several waves checkpoint into a dir each, and a wave that completed
+        # before a resume reloads without training (trials.py:193-233)
+        wave_dir = checkpoint_dir if checkpoint_dir is None or n_waves == 1 else \
+            os.path.join(checkpoint_dir, f"wave_{w:03d}")
         waves.append(_run_wave(
             cfg, data, take, seed + done, dev,
             None if lr_scales is None else lr_scales[done:done + take],
-            None if sweep is None else {k: v[done:done + take] for k, v in sweep.items()}))
-        done += take
+            None if sweep is None else {k: v[done:done + take] for k, v in sweep.items()},
+            checkpoint_every=checkpoint_every, checkpoint_dir=wave_dir,
+            on_segment=on_segment, trial_offset=done, allow_completed=n_waves > 1))
     return waves[0] if len(waves) == 1 else _concat_results(waves)
 
 
@@ -126,23 +153,121 @@ def _concat_results(waves: List[TrialResults]) -> TrialResults:
     return TrialResults(n_trials=sum(w.n_trials for w in waves), **fields)
 
 
-def _run_wave(cfg, data: TrialData, n_trials: int, seed: int, device,
-              lr_scales, sweep) -> TrialResults:
-    """One wave of ``n_trials`` resident trials, base seed ``seed``."""
+@dataclasses.dataclass
+class SegmentBest:
+    """A wave's best-combined trackers after a segment: the epoch and metric
+    per trial (T,), and ``weights(i)``, trial i's best model as
+    ``(params, batch_stats)`` (the bundle layout)."""
+
+    epoch: np.ndarray
+    combined: np.ndarray
+    weights: Callable[[int], tuple]
+
+
+def _sweep_record(lr_scales, sweep):
+    return (None if lr_scales is None else [float(x) for x in lr_scales],
+            None if sweep is None else {k: [float(x) for x in v] for k, v in sweep.items()})
+
+
+def _resume(trainer: RankAAETrainer, state: TrainState, checkpoint_dir: str, n_trials: int,
+            seed: int, lr_scales, sweep):
+    """The epoch to start from and the logs so far, from the wave's
+    checkpoint when there is one of this seed and trial count (else 0 and
+    none); a checkpoint of another sweep raises."""
+    progress_fn = os.path.join(checkpoint_dir, "progress.json")
+    state_fn = os.path.join(checkpoint_dir, "trial_state.mpk")
+    logs_fn = os.path.join(checkpoint_dir, "logs.npz")
+    if not (os.path.exists(progress_fn) and os.path.exists(state_fn)):
+        return 0, []
+    with open(progress_fn) as f:
+        progress = json.load(f)
+    if progress.get("n_trials") != n_trials or progress.get("seed") != seed:
+        return 0, []
+    want = _sweep_record(lr_scales, sweep)
+    saved = (progress.get("lr_scales"), progress.get("sweep"))
+    if saved != want:
+        # the saved learning rates and hyperparameters are the original
+        # sweep's: resuming under another would mislabel the trials
+        raise ValueError(f"resume sweep mismatch: checkpoint was trained with "
+                         f"lr_scales={saved[0]}, sweep={saved[1]}; resume requested "
+                         f"lr_scales={want[0]}, sweep={want[1]}")
+    tree, extra = load_train_state(state_fn)
+    trainer.load_state_tree(state, tree)
+    # the state file's own epoch wins; the logs, written before it, are cut
+    # to it, so a crash between the two writes never duplicates a row
+    start = int(extra.get("epoch", progress["epoch"]))
+    if not os.path.exists(logs_fn):
+        return start, []
+    with np.load(logs_fn) as z:
+        return start, [{k: z[k][:, :start] for k in z.files}]
+
+
+def _checkpoint(trainer: RankAAETrainer, state: TrainState, checkpoint_dir: str, epoch: int,
+                logs: Dict[str, np.ndarray], n_trials: int, seed: int, lr_scales, sweep) -> None:
+    """Logs, then the state (naming its epoch), then the progress file."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    tmp = os.path.join(checkpoint_dir, "logs.tmp.npz")
+    np.savez(tmp, **logs)
+    os.replace(tmp, os.path.join(checkpoint_dir, "logs.npz"))
+    save_train_state(os.path.join(checkpoint_dir, "trial_state.mpk"),
+                     trainer.state_tree(state), extra={"epoch": epoch})
+    scales, hp = _sweep_record(lr_scales, sweep)
+    with open(os.path.join(checkpoint_dir, "progress.json"), "w") as f:
+        json.dump({"epoch": epoch, "n_trials": n_trials, "seed": seed, "lr_scales": scales,
+                   "sweep": hp}, f)
+
+
+def _run_wave(cfg, data: TrialData, n_trials: int, seed: int, device, lr_scales, sweep,
+              checkpoint_every: Optional[int] = None, checkpoint_dir: Optional[str] = None,
+              on_segment: Optional[Callable] = None, trial_offset: int = 0,
+              allow_completed: bool = False) -> TrialResults:
+    """One wave of ``n_trials`` resident trials, base seed ``seed``, in
+    segments of ``checkpoint_every`` epochs (one segment without)."""
     trainer = RankAAETrainer(cfg, n_train=data.train_spec.shape[0],
                              n_val=data.val_spec.shape[0], trials=n_trials, device=device)
     state = trainer.init_state(seed, lr_scales=lr_scales, hparams=sweep)
-    logs = []
-    for epoch in range(cfg.max_epoch):
-        state, log = trainer.epoch_step(state, epoch, data)
-        logs.append(log)
-    return _collect_results(trainer, state, logs)
+    start, log_parts = 0, []
+    if checkpoint_dir:
+        start, log_parts = _resume(trainer, state, checkpoint_dir, n_trials, seed,
+                                   lr_scales, sweep)
+    if start >= cfg.max_epoch and not (allow_completed and log_parts):
+        raise ValueError(f"checkpoint in {checkpoint_dir} is already complete "
+                         f"(epoch {start} >= max_epoch {cfg.max_epoch})")
+    seg = checkpoint_every or (cfg.max_epoch - start)
+    for e0 in range(start, cfg.max_epoch, seg):
+        e1 = min(e0 + seg, cfg.max_epoch)
+        logs = []
+        for epoch in range(e0, e1):
+            state, log = trainer.epoch_step(state, epoch, data)
+            logs.append(log)
+        log_parts.append(_host_logs(logs, n_trials))
+        if on_segment is not None:
+            on_segment(e0, e1, log_parts[-1], SegmentBest(
+                state.best_epoch.cpu().numpy(), state.best_combined.cpu().numpy(),
+                lambda i: trainer.export(i, state.best_state)), trial_offset)
+        if checkpoint_dir:
+            _checkpoint(trainer, state, checkpoint_dir, e1, _concat_logs(log_parts), n_trials,
+                        seed, lr_scales, sweep)
+    return _collect_results(trainer, state, _concat_logs(log_parts))
 
 
-def _collect_results(trainer: RankAAETrainer, state: TrainState, logs: List[dict]
+def _host_logs(logs: List[dict], t: int) -> Dict[str, np.ndarray]:
+    """Per-epoch logs (one dict per epoch, as ``epoch_step`` returns them)
+    as host arrays (T, E, ...)."""
+    return {k: np.broadcast_to(np.asarray([log[k] for log in logs], np.int32), (t, len(logs)))
+            .copy() if k == "epoch"
+            else torch.stack([log[k] for log in logs], dim=1).cpu().numpy()
+            for k in logs[0]}
+
+
+def _concat_logs(parts: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    return {k: np.concatenate([p[k] for p in parts], axis=1) for k in parts[0]}
+
+
+def _collect_results(trainer: RankAAETrainer, state: TrainState, logs: Dict[str, np.ndarray]
                      ) -> TrialResults:
-    """The trainer's trials, their trackers and their per-epoch logs (one
-    dict per epoch, as ``epoch_step`` returns them) as host results."""
+    """The trainer's trials, their trackers and their host logs
+    (T, E, ...) as host results."""
     t = trainer.trials
 
     def weights(snapshot):
@@ -156,18 +281,14 @@ def _collect_results(trainer: RankAAETrainer, state: TrainState, logs: List[dict
     final_params, final_stats = weights(None)
     best_params, best_stats = weights(state.best_state)
     recon_params, recon_stats = weights(state.best_recon_state)
-    host = {k: np.broadcast_to(np.asarray([log[k] for log in logs], np.int32), (t, len(logs)))
-            .copy() if k == "epoch"
-            else torch.stack([log[k] for log in logs], dim=1).cpu().numpy()
-            for k in logs[0]}
     return TrialResults(
         n_trials=t,
         final_params=final_params, final_batch_stats=final_stats,
         best_params=best_params, best_batch_stats=best_stats,
         best_epoch=state.best_epoch.cpu().numpy(),
         best_combined=state.best_combined.cpu().numpy(),
-        logs=host,
-        final_metrics=host["metrics"][:, -1, :],
+        logs=logs,
+        final_metrics=logs["metrics"][:, -1, :],
         best_recon_params=recon_params, best_recon_batch_stats=recon_stats,
         best_recon_epoch=state.best_recon_epoch.cpu().numpy(),
         best_recon=state.best_recon.cpu().numpy(),

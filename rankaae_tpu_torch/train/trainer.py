@@ -133,6 +133,10 @@ class TrainState:
     best_recon_state: Dict[str, Dict[str, torch.Tensor]]
 
 
+#: the trackers' per-trial tensors of a TrainState
+_TRACKERS = ("best_combined", "best_epoch", "faithful_best", "best_recon", "best_recon_epoch")
+
+
 def _lead(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A per-trial (T,) tensor shaped to broadcast against ``like``, whose
     leading axis is the trial axis (or, at T = 1, any axis)."""
@@ -249,6 +253,91 @@ class RankAAETrainer:
         )
 
     # ------------------------------------------------------------------ #
+    # the whole run as a host tree (resume)
+    # ------------------------------------------------------------------ #
+
+    def state_tree(self, state: TrainState) -> Dict:
+        """Everything a run carries, as nested dicts of host numpy arrays
+        (what ``utils/checkpoint.py::save_train_state`` writes): every
+        module's weights and running statistics, every optimizer's moments
+        and step count, the plateau states, both trackers and their
+        snapshots, the sweepable hyperparameters and every generator's
+        state."""
+        def np_(t):
+            return t.detach().cpu().numpy().copy()
+
+        def host(sd):
+            return {k: np_(v) for k, v in sd.items()}
+
+        return {
+            "models": {k: host(m.state_dict()) for k, m in self.models.items()},
+            "opt": {name: {"count": np.int64(o.count), "mu": [np_(t) for t in o.mu],
+                           "nu": [np_(t) for t in o.nu]}
+                    for name, o in state.opt.items()},
+            "sched": {name: host(sch._asdict()) for name, sch in state.sched.items()},
+            "hparams": {k: np.asarray(v, np.float32) for k, v in state.hparams.items()},
+            "trackers": host({k: getattr(state, k) for k in _TRACKERS}),
+            "best_state": {k: host(sd) for k, sd in state.best_state.items()},
+            "best_recon_state": {k: host(sd) for k, sd in state.best_recon_state.items()},
+            "sampler": state.sampler.get_state(),
+        }
+
+    def load_state_tree(self, state: TrainState, tree: Mapping) -> TrainState:
+        """Restore :meth:`state_tree`'s ``tree`` into the modules and into
+        ``state`` (a fresh :meth:`init_state` of the same config and trial
+        count, which gives the layout); raises ``ValueError`` where a key or
+        a shape differs."""
+        def check(got, want, what):
+            if sorted(got) != sorted(want):
+                raise ValueError(f"train state {what}: keys {sorted(got)} != {sorted(want)} "
+                                 "(another config?)")
+
+        def put(dst: torch.Tensor, src, what):
+            src = np.asarray(src)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"train state {what}: shape {src.shape} != {tuple(dst.shape)} "
+                                 "(another config?)")
+            with torch.no_grad():
+                dst.copy_(torch.from_numpy(src.copy()))
+
+        def put_dict(dst: Mapping[str, torch.Tensor], src: Mapping, what):
+            check(src, dst, what)
+            for k, t in dst.items():
+                put(t, src[k], f"{what}.{k}")
+
+        check(tree, ("models", "opt", "sched", "hparams", "trackers", "best_state",
+                     "best_recon_state", "sampler"), "")
+        for k, m in self.models.items():
+            put_dict(m.state_dict(), tree["models"][k], f"models.{k}")
+        check(tree["opt"], state.opt, "opt")
+        for name, o in state.opt.items():
+            saved = tree["opt"][name]
+            o.count = int(saved["count"])
+            for field in ("mu", "nu"):
+                if len(saved[field]) != len(getattr(o, field)):
+                    raise ValueError(f"train state opt.{name}.{field}: another config?")
+                for i, t in enumerate(getattr(o, field)):
+                    put(t, saved[field][i], f"opt.{name}.{field}[{i}]")
+        check(tree["sched"], state.sched, "sched")
+        state.sched = {name: PlateauState(**{
+            f: torch.tensor(np.asarray(tree["sched"][name][f]), device=self.device)
+            for f in PlateauState._fields}) for name in state.sched}
+        check(tree["hparams"], state.hparams, "hparams")
+        state.hparams = {k: np.asarray(v, np.float32) for k, v in tree["hparams"].items()}
+        state.spec_noise = torch.tensor(state.hparams["spec_noise"],
+                                        device=self.device).view(self.trials, 1, 1)
+        trackers = tree["trackers"]
+        check(trackers, _TRACKERS, "trackers")
+        for k in _TRACKERS:
+            put(getattr(state, k), trackers[k], k)
+        for snap in ("best_state", "best_recon_state"):
+            check(tree[snap], getattr(state, snap), snap)
+            for k, sd in getattr(state, snap).items():
+                put_dict(sd, tree[snap][k], f"{snap}.{k}")
+        state.sampler.set_state(tree["sampler"])
+        return state
+
+    # ------------------------------------------------------------------ #
     # one trial's weights in the single-trial modules' layout
     # ------------------------------------------------------------------ #
 
@@ -328,7 +417,6 @@ class RankAAETrainer:
         the state and the six losses, (T,) each."""
         cfg = self.cfg
         sampler = state.sampler if sampler is None else sampler
-        enc, dec = self.models["enc"], self.models["dec"]
         for m in self.models.values():
             m.train()
         t, b = spec.shape[:2]
@@ -344,33 +432,14 @@ class RankAAETrainer:
         else:
             dis_loss, gen_loss = self._gan_steps(state, spec_in, z_real, sampler)
 
-        # ---- kendall / correlation step (trainer.py:152-161) ----------- #
-        styles = enc(spec_in, sampler=sampler)
-        aux_loss = kendall_constraint(aux, styles[..., : cfg.n_aux],
-                                      activate=cfg.kendall_activation)
-        self._opt_step("correlation", aux_loss, state)
-
-        # ---- reconstruction step (trainer.py:163-172) ------------------ #
-        spec_out = dec(enc(spec_in, sampler=sampler), sampler=sampler)
-        rec_loss = recon_loss(spec_in, spec_out, scale=cfg.use_flex_spec_target,
-                              scale_weight=cfg.flex_scale_weight)
-        self._opt_step("reconstruction", rec_loss, state)
-
-        # ---- mutual-info step (trainer.py:174-186) --------------------- #
+        aux_loss = self._correlation_step(state, spec_in, aux, sampler)
+        rec_loss = self._reconstruction_step(state, spec_in, sampler)
         with torch.no_grad():
-            enc(spec_in, sampler=sampler)      # dead re-encode at trainer.py:176: stats only
-        # z ~ N(0,I) at the ACTUAL batch size (functions.py:185)
-        z_sample = sampler.normal("z_sample", (t, b, cfg.nstyle))
-        z_recon = enc(dec(z_sample, sampler=sampler), sampler=sampler)
-        mi_loss = mse(z_recon, z_sample)
-        self._opt_step("mutual_info", mi_loss, state)
-
-        # ---- smoothness step, until epoch_stop_smooth (trainer.py:188-200) #
+            # the dead re-encode at trainer.py:176: stats only
+            self.models["enc"](spec_in, sampler=sampler)
+        mi_loss = self._mutual_info_step(state, b, sampler)
         if epoch < cfg.epoch_stop_smooth:
-            with torch.no_grad():
-                styles = enc(spec_in, sampler=sampler)
-            sm_loss = smoothness_loss(dec(styles, sampler=sampler), GAU_KERNEL_SIZE)
-            self._opt_step("smoothness", sm_loss, state)
+            sm_loss = self._smoothness_step(state, spec_in, sampler)
         else:
             sm_loss = torch.zeros(t, device=self.device)
 
@@ -382,6 +451,42 @@ class RankAAETrainer:
             "smooth": sm_loss.detach(),
             "mi": mi_loss.detach(),
         }
+
+    def _correlation_step(self, state: TrainState, spec_in, aux, sampler):
+        """The Kendall step (trainer.py:152-161); returns its loss (T,)."""
+        styles = self.models["enc"](spec_in, sampler=sampler)
+        loss = kendall_constraint(aux, styles[..., : self.cfg.n_aux],
+                                  activate=self.cfg.kendall_activation)
+        self._opt_step("correlation", loss, state)
+        return loss
+
+    def _reconstruction_step(self, state: TrainState, spec_in, sampler):
+        """The reconstruction step (trainer.py:163-172); returns its loss."""
+        enc, dec, cfg = self.models["enc"], self.models["dec"], self.cfg
+        spec_out = dec(enc(spec_in, sampler=sampler), sampler=sampler)
+        loss = recon_loss(spec_in, spec_out, scale=cfg.use_flex_spec_target,
+                          scale_weight=cfg.flex_scale_weight)
+        self._opt_step("reconstruction", loss, state)
+        return loss
+
+    def _mutual_info_step(self, state: TrainState, b: int, sampler):
+        """The mutual-info step (trainer.py:174-186) after the dead
+        re-encode: decode and re-encode z ~ N(0, I) at the actual batch
+        size ``b`` (functions.py:185); returns its loss."""
+        enc, dec = self.models["enc"], self.models["dec"]
+        z_sample = sampler.normal("z_sample", (self.trials, b, self.cfg.nstyle))
+        loss = mse(enc(dec(z_sample, sampler=sampler), sampler=sampler), z_sample)
+        self._opt_step("mutual_info", loss, state)
+        return loss
+
+    def _smoothness_step(self, state: TrainState, spec_in, sampler):
+        """The smoothness step (trainer.py:188-200): the decoder alone, on
+        styles of a stats-updating encode; returns its loss."""
+        with torch.no_grad():
+            styles = self.models["enc"](spec_in, sampler=sampler)
+        loss = smoothness_loss(self.models["dec"](styles, sampler=sampler), GAU_KERNEL_SIZE)
+        self._opt_step("smoothness", loss, state)
+        return loss
 
     def _adversarial_step(self, state: TrainState, spec_in, z_real, beta, sampler):
         """The GRL step (``trainer.py:334-373`` in the JAX package): one

@@ -1,5 +1,5 @@
-"""Model bundles (counterpart of ``rankaae_tpu/utils/checkpoint.py:24-62``,
-the bundle half).
+"""Model bundles and resumable train states (counterpart of
+``rankaae_tpu/utils/checkpoint.py``).
 
 A bundle is ``<path>``, a msgpack map ``{version, params, batch_stats}`` of
 the JAX package's nested pytrees (numpy leaves, see ``utils/weights.py``),
@@ -12,6 +12,12 @@ package: the subset flax uses — maps, arrays, strings, binaries, ints,
 floats, bool and nil, and its extension types 1 (an ndarray, packed as
 ``(shape, dtype name, C-order bytes)``) and 3 (a numpy scalar, packed the
 same way).
+
+A train state (:func:`save_train_state`) is the port's own format: one
+msgpack map ``{format, state, extra}`` holding the host tree of
+``RankAAETrainer.state_tree`` (module weights, moments, plateau states,
+trackers, generator states) and scalar metadata such as the epoch it
+belongs to, written atomically.
 """
 from __future__ import annotations
 
@@ -216,3 +222,37 @@ def load_model_bundle(path: str) -> Tuple[Dict[str, Any], Dict[str, Any], TrainC
         manifest = json.load(f)
     cfg = TrainConfig(**manifest["config"])
     return payload["params"], payload["batch_stats"], cfg, manifest.get("extra", {})
+
+
+# --------------------------------------------------------------------------- #
+# train states
+# --------------------------------------------------------------------------- #
+
+#: the train-state file's format: a map {format, state, extra}
+STATE_FORMAT_VERSION = 1
+
+
+def save_train_state(path: str, tree: Dict[str, Any], extra: Dict[str, Any] | None = None
+                     ) -> str:
+    """Write ``tree`` (``RankAAETrainer.state_tree``) and the scalar
+    metadata ``extra`` (the epoch the state belongs to) into one file, via
+    a temporary file and a rename, so a crash leaves the old file or the
+    new one (``rankaae_tpu/utils/checkpoint.py:95``)."""
+    payload = {"format": STATE_FORMAT_VERSION, "state": tree, "extra": dict(extra or {})}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(packb(payload))
+    os.replace(tmp, path)
+    return path
+
+
+def load_train_state(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``(tree, extra)`` of a file :func:`save_train_state` wrote
+    (``rankaae_tpu/utils/checkpoint.py:124``); ``RankAAETrainer.
+    load_state_tree`` checks the tree against the config."""
+    with open(path, "rb") as f:
+        payload = unpackb(f.read())
+    if not isinstance(payload, dict) or payload.get("format") != STATE_FORMAT_VERSION:
+        raise ValueError(f"{path} is not a train state of format {STATE_FORMAT_VERSION}")
+    return payload["state"], payload["extra"]

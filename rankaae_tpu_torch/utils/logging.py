@@ -46,6 +46,23 @@ def format_loss_row(epoch: int, logs_at_epoch: dict) -> str:
     return f"{epoch:d},\t" + ",\t".join(f"{float(v):.6f}" for v in vals) + ",\t"
 
 
+def append_losses_csv(path: str, logs: dict, epoch_offset: int, every: int = 10) -> None:
+    """Append the rows of a log segment that covers the absolute epochs
+    [epoch_offset, epoch_offset + len): the incremental form of
+    :func:`write_losses_csv` that segmented runs use
+    (``rankaae_tpu/utils/logging.py:51``).  The header is written with the
+    first segment."""
+    new_file = not os.path.exists(path)
+    with open(path, "a") as f:
+        if new_file:
+            f.write(LOSS_CSV_HEADER + "\n")
+        for i in range(len(logs["epoch"])):
+            epoch = epoch_offset + i
+            if epoch % every == 0:
+                row = {k: v[i] for k, v in logs.items() if k != "metrics"}
+                f.write(format_loss_row(epoch, row) + "\n")
+
+
 def write_losses_csv(path: str, logs: dict, every: int = 10) -> None:
     """Dump the loss table for epochs where ``epoch % every == 0``
     (the reference logs every 10 epochs, ``trainer.py:270``).  ``logs`` maps

@@ -10,7 +10,11 @@ trial's generator.  So trial g of a T-trial run takes exactly the draws of a
 feed, so a :class:`FixedDraws` can hand in fixed arrays for the named draws
 where two runs must take the same numbers (``jax.random`` and
 ``torch.Generator`` give different numbers from the same seed, and a CPU
-and a CUDA generator do too).
+and a CUDA generator do too).  A :class:`TrialSampler`'s generators are
+stateful, so a resumed run is exact only if their states are saved and
+restored (:meth:`TrialSampler.get_state`, :meth:`TrialSampler.set_state`):
+a CPU generator's state is its Mersenne-Twister state, a CUDA one's its
+Philox seed and offset.
 """
 from __future__ import annotations
 
@@ -61,6 +65,17 @@ class TrialSampler:
     @property
     def trials(self) -> int:
         return len(self.generators)
+
+    def get_state(self) -> List[np.ndarray]:
+        """Every generator's state, as host uint8 arrays (one per trial)."""
+        return [g.get_state().numpy().copy() for g in self.generators]
+
+    def set_state(self, states: Sequence[np.ndarray]) -> None:
+        """Restore what :meth:`get_state` returned, generator by generator."""
+        if len(states) != self.trials:
+            raise ValueError(f"{len(states)} generator states for {self.trials} trials")
+        for g, st in zip(self.generators, states):
+            g.set_state(torch.from_numpy(np.asarray(st, np.uint8).copy()))
 
     def trial(self, i: int) -> Sampler:
         """A plain :class:`Sampler` over generator ``i``, for the modules

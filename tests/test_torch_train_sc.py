@@ -119,9 +119,9 @@ def test_conv_form_runs_as_waves_of_one(jax_run, tmp_path, monkeypatch):
     waves = []
     real = port_trials._run_wave
 
-    def run_wave(cfg, data, n_trials, *args):
+    def run_wave(cfg, data, n_trials, *args, **kw):
         waves.append(n_trials)
-        return real(cfg, data, n_trials, *args)
+        return real(cfg, data, n_trials, *args, **kw)
 
     monkeypatch.setattr(port_trials, "_run_wave", run_wave)
     work = _work_dir(tmp_path / "compact", ae_form="compact")

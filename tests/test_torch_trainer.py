@@ -10,8 +10,8 @@
 * A CPU smoke of the ``Trainer.from_data(...).train()`` facade.
 * The package rules: nothing of ``jax``, ``rankaae_tpu`` or ``msgpack`` is
   imported (the runner and ``train_sc`` included), the entry points
-  (training and serving) do not fall back to the CPU, and the trainer and
-  ``train_sc`` refuse the paths they do not implement yet.
+  (training, recalibration, serving and the report) do not fall back to
+  the CPU, and the trainer refuses the paths it does not implement yet.
 """
 import ast
 import os
@@ -28,9 +28,10 @@ import torch
 from rankaae_tpu.train.trainer import RankAAETrainer as JaxTrainer
 from rankaae_tpu.utils.config import TrainConfig as JaxTrainConfig
 
-from rankaae_tpu_torch.cli import train_sc
 from rankaae_tpu_torch.models.inference import InferenceModel
+from rankaae_tpu_torch.models.recalibrate import amplitude_gain, recalibrate_batch_stats
 from rankaae_tpu_torch.models.registry import build_autoencoder
+from rankaae_tpu_torch.report.generate_report import main as generate_report_main
 from rankaae_tpu_torch.serve import BatchedInference, main as serve_main
 from rankaae_tpu_torch.train.facade import Trainer
 from rankaae_tpu_torch.train.trainer import RankAAETrainer
@@ -110,34 +111,40 @@ def test_entry_points_default_to_cuda(synthetic_csv, monkeypatch, tmp_path):
     bundle = save_model_bundle(str(tmp_path / "m.mpk"), params, stats, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_main([bundle, synthetic_csv, str(tmp_path / "out")])
+    spec = np.ones((4, 256), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recalibrate_batch_stats(cfg, params, stats, spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        amplitude_gain(cfg, params, stats, spec)
+    job = tmp_path / "training" / "job_1"
+    job.mkdir(parents=True)
+    save_model_bundle(str(job / "final.mpk"), params, stats, cfg)
+    with open(tmp_path / "cfg.yaml", "w") as f:
+        yaml.safe_dump({**CFG, "data_file": synthetic_csv}, f)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_report_main(["-c", "cfg.yaml", "-w", str(tmp_path), "--no-figures"])
 
 
-def test_unported_paths_raise(tmp_path):
-    for kw in ({"protocol": "joint"}, {"protocol": "fused"}, {"flat_optim": True},
-               {"activation_dtype": "bfloat16"}, {"ae_form": "qved"}):
-        with pytest.raises(NotImplementedError):
-            RankAAETrainer(TrainConfig(**{**CFG, **kw}), n_train=B, n_val=N_VAL, device="cpu")
-    # train_sc: resumable runs (ROADMAP item 4) and recalibration (item 5)
-    for flags, kw, item in ((["--checkpoint-every", "5"], {}, "item 4"),
-                            (["--resume"], {}, "item 4"),
-                            ([], {"bn_recalibrate": True}, "item 5"),
-                            ([], {"amp_recalibrate": True}, "item 5")):
-        with open(tmp_path / "cfg.yaml", "w") as f:
-            yaml.safe_dump({**CFG, **kw}, f)
+def test_unported_paths_raise():
+    for kw, item in (({"protocol": "joint"}, "item 8"), ({"protocol": "fused"}, "item 8"),
+                     ({"flat_optim": True}, "item 7"), ({"activation_dtype": "bfloat16"}, "item 9"),
+                     ({"ae_form": "qved"}, "item 6")):
         with pytest.raises(NotImplementedError, match=item):
-            train_sc.main(["-c", "cfg.yaml", "-w", str(tmp_path), "--device", "cpu", *flags])
+            RankAAETrainer(TrainConfig(**{**CFG, **kw}), n_train=B, n_val=N_VAL, device="cpu")
 
 
 def test_package_imports_nothing_of_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import rankaae_tpu_torch.parallel.trials, rankaae_tpu_torch.cli.train_sc\n"
+        "import rankaae_tpu_torch.cli.generate_report\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'rankaae_tpu')]\n"
         "import rankaae_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'rankaae_tpu', 'msgpack')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'rankaae_tpu', 'msgpack',\n"
+        "                              'matplotlib', 'seaborn', 'sklearn')]\n"
         "assert len(names) >= 20, names\n"
         "assert not bad, bad\n"
     )

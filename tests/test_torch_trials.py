@@ -344,9 +344,9 @@ def test_waves_equal_one_wave(monkeypatch):
     waves = []
     real = port_trials._run_wave
 
-    def run_wave(cfg, data, n_trials, *args):
+    def run_wave(cfg, data, n_trials, *args, **kw):
         waves.append(n_trials)
-        return real(cfg, data, n_trials, *args)
+        return real(cfg, data, n_trials, *args, **kw)
 
     monkeypatch.setattr(port_trials, "_run_wave", run_wave)
     one = run_trials(cfg, data, n_trials=T, seed=2, device="cpu")

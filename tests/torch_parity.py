@@ -16,8 +16,13 @@ BatchNorm has an exactly null gradient), and that noise differs between two
 stacks.  Tolerances: :data:`BATCH_ATOL` on the six losses and on every
 parameter and running-statistic leaf after the batch (several sequential
 optimizer steps of float32 arithmetic taken in another order),
-:data:`VAL_ATOL` on ``_validate``.
+:data:`VAL_ATOL` on ``_validate``.  Where a batch amplifies the rounding
+that its first steps leave past that tolerance,
+:func:`compare_batch_by_steps` compares its later steps each from the JAX
+package's inputs to that step.
 """
+import inspect
+
 import numpy as np
 
 import jax
@@ -27,7 +32,7 @@ import torch
 from rankaae_tpu.train.trainer import TrialData as JaxTrialData
 
 from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes
-from rankaae_tpu_torch.train.trainer import TrialData
+from rankaae_tpu_torch.train.trainer import OPT_SPECS, TrialData
 from rankaae_tpu_torch.utils.sampler import FixedDraws
 from rankaae_tpu_torch.utils.weights import from_jax
 
@@ -59,18 +64,23 @@ def _flat(tree):
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
+def _with_nu0(jstate, tstate):
+    """Both optimizers' second moments at :data:`NU0`; returns the JAX state."""
+    for o in tstate.opt.values():
+        for v in o.nu:
+            v.fill_(NU0)
+    return jstate._replace(opt={
+        k: o._replace(nu=jax.tree_util.tree_map(lambda x: jnp.full_like(x, NU0), o.nu))
+        for k, o in jstate.opt.items()})
+
+
 def compare_batch(jtr, jstate, ttr, tstate, spec, aux, alpha=0.3, epoch=0, seed=42):
     """One batch on both stacks from ``jstate``'s weights (loaded into the
     port's modules here); asserts the losses and every leaf after the step.
     Returns the number of leaves checked, the changes of every element of
     the autoencoder's weight matrices and kernels, and both loss dicts."""
     load_jax_weights(ttr, jstate)
-    jstate = jstate._replace(opt={
-        k: o._replace(nu=jax.tree_util.tree_map(lambda x: jnp.full_like(x, NU0), o.nu))
-        for k, o in jstate.opt.items()})
-    for o in tstate.opt.values():
-        for v in o.nu:
-            v.fill_(NU0)
+    jstate = _with_nu0(jstate, tstate)
     rng = jax.random.PRNGKey(seed)
     new_jstate, jlosses = jax.jit(jtr._train_batch)(
         jstate, jnp.asarray(spec), jnp.asarray(aux), jnp.float32(alpha), jnp.int32(epoch), rng)
@@ -84,17 +94,144 @@ def compare_batch(jtr, jstate, ttr, tstate, spec, aux, alpha=0.3, epoch=0, seed=
     for name in LOSSES:
         np.testing.assert_allclose(tlosses[name].item(), float(jlosses[name]),
                                    atol=BATCH_ATOL, err_msg=name)
-    params, stats = ttr.export(0)
-    got = _flat({"params": params, "stats": stats})
-    ref = _flat({"params": new_jstate.params, "stats": new_jstate.batch_stats})
-    assert sorted(got) == sorted(ref)
-    for name, value in ref.items():
-        np.testing.assert_allclose(got[name], value, atol=BATCH_ATOL, err_msg=name)
+    ref = _assert_leaves(ttr, new_jstate.params, new_jstate.batch_stats, "after the batch:")
     old = _flat({"params": jstate.params, "stats": jstate.batch_stats})
     moved = [np.abs(value - old[name]).ravel() for name, value in ref.items()
              if name.startswith("['params']['enc']") or name.startswith("['params']['dec']")
              if value.ndim >= 2]
     return len(ref), np.concatenate(moved), tlosses, jlosses
+
+
+def record_jax_batch(jtr, jstate, spec, aux, alpha, epoch, rng):
+    """One jitted JAX ``_train_batch`` with the inputs of every optimizer
+    step recorded as it is taken (``jax.debug.callback``): the weights, the
+    running statistics its loss starts from, the moment state, the lr, the
+    loss closure's draws and ``spec_in`` (``free``), and the step's outputs
+    ``(loss, params, batch_stats, moments)``.  Returns the records by
+    optimizer name, the new state and the losses."""
+    records = {}
+    real = jtr._opt_step
+
+    def record(name, loss_fn, params, opt_state, lr):
+        free = inspect.getclosurevars(loss_fn).nonlocals
+        out = real(name, loss_fn, params, opt_state, lr)
+        jax.debug.callback(
+            lambda rec, name=name: records.__setitem__(name, rec),
+            {"params": params, "stats": free["stats"], "opt": opt_state, "lr": lr,
+             "free": {k: free[k] for k in ("z_sample", "spec_in") if k in free},
+             "out": out})
+        return out
+
+    jtr._opt_step = record
+    try:
+        new_state, losses = jax.jit(jtr._train_batch)(
+            jstate, jnp.asarray(spec), jnp.asarray(aux), jnp.float32(alpha),
+            jnp.int32(epoch), rng)
+        jax.effects_barrier()
+    finally:
+        del jtr._opt_step
+    return records, new_state, losses
+
+
+def _port_moments(ttr, name, tree):
+    """A JAX moment tree of optimizer ``name``'s parameter subset as the
+    port's list of tensors (trial 0 of its parameters)."""
+    out = []
+    for role in OPT_SPECS[name][0]:
+        sd = from_jax({role: jax.tree_util.tree_map(np.asarray, tree[role])}, {})[role]
+        for (key, _), p in zip(ttr.single_models[role].named_parameters(),
+                               ttr.models[role].parameters()):
+            out.append(sd[key].reshape(p.shape).clone())
+    return out
+
+
+def _assert_leaves(ttr, params, stats, what):
+    """Every leaf of trial 0 of the port's modules against the JAX trees;
+    returns the JAX leaves by path."""
+    tparams, tstats = ttr.export(0)
+    got = _flat({"params": tparams, "stats": tstats})
+    ref = _flat({"params": params, "stats": stats})
+    assert sorted(got) == sorted(ref)
+    for name, value in ref.items():
+        np.testing.assert_allclose(got[name], value, atol=BATCH_ATOL, err_msg=f"{what} {name}")
+    return ref
+
+
+def compare_step_alone(ttr, tstate, name, record, step):
+    """Optimizer step ``name`` of the port from the JAX inputs in
+    ``record`` (weights, running statistics, moments, lr): ``step(free)``
+    runs the port's step method with the loss closure's free variables
+    ``free`` and returns its loss; asserts the loss and every leaf after the
+    step against the JAX step's outputs."""
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)   # noqa: E731
+    ttr.load_trial_state_dicts(0, from_jax(to_np(record["params"]), to_np(record["stats"])))
+    opt = tstate.opt[name]
+    opt.count = int(record["opt"].count)
+    opt.mu = _port_moments(ttr, name, record["opt"].mu)
+    opt.nu = _port_moments(ttr, name, record["opt"].nu)
+    np.testing.assert_array_equal(tstate.sched[name].lr.numpy(), float(record["lr"]))
+    for m in ttr.models.values():
+        m.train()
+    loss, new_params, new_stats, _ = record["out"]
+    np.testing.assert_allclose(step(record["free"]).item(), float(loss), atol=BATCH_ATOL,
+                               err_msg=name)
+    _assert_leaves(ttr, new_params, new_stats, f"after {name}:")
+
+
+def compare_batch_by_steps(jtr, jstate, ttr, tstate, spec, aux, alpha=0.3, epoch=0, seed=42):
+    """One batch on both stacks, each step compared from identical inputs.
+
+    The whole batch runs on both from ``jstate``'s weights, and the losses
+    of the steps before the mutual-info step and every leaf as it stands
+    before that step (after the dead re-encode) are held to
+    :data:`BATCH_ATOL`.  The mutual-info and smoothness steps are then each
+    run on the port alone from the JAX package's inputs to that step
+    (:func:`compare_step_alone`).  So float32 rounding that one step
+    amplifies is not carried into the next, as it is when the steps run in
+    sequence.  Returns the changes of every element of the autoencoder's
+    weight matrices and kernels over the JAX batch."""
+    load_jax_weights(ttr, jstate)
+    jstate = _with_nu0(jstate, tstate)
+    rng = jax.random.PRNGKey(seed)
+    records, new_jstate, jlosses = record_jax_batch(jtr, jstate, spec, aux, alpha, epoch, rng)
+
+    before_mi = {}
+    real_mi = ttr._mutual_info_step
+
+    def mi_step(state, b, sampler):
+        before_mi["weights"] = ttr.export(0)
+        return real_mi(state, b, sampler)
+
+    ttr._mutual_info_step = mi_step
+    try:
+        sampler = FixedDraws(batch_draws(jtr.cfg, rng, spec.shape[0]))
+        _, tlosses = ttr._train_batch(tstate, torch.tensor(spec)[None],
+                                      torch.tensor(aux)[None], alpha, epoch, sampler)
+    finally:
+        del ttr._mutual_info_step
+    assert not sampler.draws
+    for name in ("dis", "gen", "aux", "recon"):
+        np.testing.assert_allclose(tlosses[name].item(), float(jlosses[name]),
+                                   atol=BATCH_ATOL, err_msg=name)
+    mi = records["mutual_info"]
+    got = _flat(dict(zip(("params", "stats"), before_mi["weights"])))
+    ref = _flat({"params": mi["params"], "stats": mi["stats"]})
+    assert sorted(got) == sorted(ref)
+    for name, value in ref.items():
+        np.testing.assert_allclose(got[name], value, atol=BATCH_ATOL,
+                                   err_msg=f"before mutual_info: {name}")
+
+    b = spec.shape[0]
+    compare_step_alone(ttr, tstate, "mutual_info", mi, lambda free: ttr._mutual_info_step(
+        tstate, b, FixedDraws({"z_sample": np.asarray(free["z_sample"])[None]})))
+    compare_step_alone(ttr, tstate, "smoothness", records["smoothness"],
+                       lambda free: ttr._smoothness_step(
+                           tstate, torch.tensor(np.asarray(free["spec_in"]))[None], None))
+    old = _flat({"params": jstate.params})
+    ref = _flat({"params": new_jstate.params})
+    return np.concatenate([np.abs(value - old[name]).ravel() for name, value in ref.items()
+                           if name.startswith(("['params']['enc']", "['params']['dec']"))
+                           if value.ndim >= 2])
 
 
 def batch_draws(cfg, rng, b):
@@ -161,12 +298,7 @@ def start_from_jax(jtr, jstate, ttr, tstate, trial=0):
     load_jax_weights(ttr, jstate, trial)
     tstate.best_state = ttr._snapshot()
     tstate.best_recon_state = ttr._snapshot()
-    for o in tstate.opt.values():
-        for v in o.nu:
-            v.fill_(NU0)
-    return jstate._replace(opt={
-        k: o._replace(nu=jax.tree_util.tree_map(lambda x: jnp.full_like(x, NU0), o.nu))
-        for k, o in jstate.opt.items()})
+    return _with_nu0(jstate, tstate)
 
 
 def compare_epoch(jlog, jstate, ttr, tlog, tstate, trial=0, atol=BATCH_ATOL):
