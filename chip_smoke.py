@@ -74,15 +74,37 @@ Phases (any failure exits non-zero and prints no result):
    best-recon bundle with its manifest bit-identical, K1 and K2 launched
    once a step in each run, the seconds of each checkpoint write and of the
    resume's load; (b) recalibration: ``train_sc`` of the normal form (2
-   trials, 3 epochs) with ``bn_recalibrate`` and ``amp_recalibrate``: every
-   manifest's ``amp_gain`` in [0.5, 2], exact K1, K2 and K3 launches (K3 in
-   the validations and in each bundle's ``amplitude_gain``), and
+   trials in one wave, 3 epochs) with ``bn_recalibrate`` and
+   ``amp_recalibrate``: every manifest's ``amp_gain`` in [0.5, 2], exact
+   K1, K2 and K3 launches (K3 once a trial in the validations and in each
+   bundle's ``amplitude_gain``), and
    ``recalibrate_batch_stats`` (at dropout 0) and ``amplitude_gain`` of one
    bundle card vs CPU; (c) the report: ``generate`` over 8a's tree (FC, 8
    trials) and 9b's (normal form, through K3) on the card, then on the CPU
    over copies: every score of ``report.json``, the ranks and the spectra
    dumps, the wall time of each report and its exact K3 launches.  Where
-   matplotlib is not installed the reports draw no figure and say so.
+   matplotlib is not installed the reports draw no figure and say so;
+10. every form stacked on the trial axis — (a) ``train_sc`` of
+   ``example/fix_config.yaml`` with ``ae_form: normal`` at full width,
+   batch 1024, its 8 trials in one wave, EPOCHS epochs: the whole tree and
+   every bundle reloaded, K1 and K2 launched exactly as often as phase 3's
+   one-trial run (one launch carries the 8 trials), K3 once a trial and
+   fused block in each validation's two eval-mode decodes (8 x 3 x 2 x 4 =
+   192); then the normal form's steady-epoch spectra/s per GPU and a
+   profiled epoch (launches, device time, idle share) at T 1 and 8; (b)
+   trial independence of a stacked conv run: trial 2 of a 4-trial
+   normal-form run (the config's dropout and noise, ``INDEPENDENCE_LR``, 2
+   epochs) against the 1-trial run of seed + 2 under cuDNN's deterministic
+   algorithms (their cost printed), held to phase 4's tolerances or twice
+   the 1e-7 perturbation spread where that is larger; (c) the qved form:
+   ``train_sc`` of its 8 trials (EPOCHS epochs) on a seeded 7,000-row
+   12-dim dataset, the tree and bundles, K1 and K2 as phase 3's; one
+   faithful qved batch with the plain MSE target and one with the
+   config's flex target (which divides by input means near 0 on these
+   q-vectors), card vs CPU, each at phase 4's tolerances, or twice the
+   larger of that batch's 1e-7 weight and input perturbation spreads on
+   the CPU (measured in the run) where that is larger; a qved bundle
+   served by the CLI card vs CPU (atol 1e-4).
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
@@ -546,10 +568,11 @@ def time_kernels(torch, np, kc, b, k):
     return out
 
 
-def batch_parity(torch, np, cfg, loss_atol, leaf_atol, leaf_rtol=None):
+def batch_parity(torch, np, cfg, loss_atol, leaf_atol, leaf_rtol=None, data=None):
     """One faithful batch of ``cfg`` (dropout and discriminator noise at 0),
     card against CPU, from the same weights (carried through the weight
-    bridge) and the same draws, at the config's batch size.  Asserts each
+    bridge) and the same draws, at the config's batch size, on ``data``
+    ((spec, aux), default the synthetic spectra of seed 11).  Asserts each
     loss within ``loss_atol[name]`` and each parameter/statistic leaf after
     the batch within ``leaf_atol["params"|"stats"]`` (max |card - CPU|) and,
     if given, ``leaf_rtol`` (|card - CPU| / |CPU|, Frobenius).  Returns the
@@ -559,7 +582,10 @@ def batch_parity(torch, np, cfg, loss_atol, leaf_atol, leaf_rtol=None):
     from rankaae_tpu_torch.utils.sampler import FixedDraws
 
     b = cfg.batch_size
-    aux, spec, _ = make_synthetic_xanes(n_rows=b, dim=cfg.dim_in, seed=11)
+    if data is None:
+        aux, spec, _ = make_synthetic_xanes(n_rows=b, dim=cfg.dim_in, seed=11)
+    else:
+        spec, aux = data
     rng = np.random.default_rng(12)
     draws = {"spec_noise": rng.normal(size=spec.shape).astype(np.float32),
              "z_real": rng.normal(size=(cfg.batch_size, cfg.nstyle)).astype(np.float32),
@@ -834,16 +860,17 @@ def trial_independence(torch, np, cfg, splits):
     return err, compare(runs[2], runs[1])
 
 
-def trial_throughput(torch, cfg, splits, card):
-    """Phase 8c: steady-epoch spectra/s per GPU at each T of
-    ``THROUGHPUT_TRIALS`` (3 epochs, the last two timed, each ending in a
-    device sync), then a profiled epoch at the smallest and largest T."""
+def trial_throughput(torch, cfg, splits, card, trial_counts=THROUGHPUT_TRIALS, label="8c"):
+    """Phase 8c (and 10a): steady-epoch spectra/s per GPU of ``cfg`` at each
+    T of ``trial_counts`` (3 epochs, the last two timed, each ending in a
+    device sync), then a profiled epoch of its form at the smallest and
+    largest T.  Returns the spectra/s and the profiles by T."""
     from rankaae_tpu_torch.tools.profile_epoch import profile_epoch
     from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
 
     data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
-    out = {}
-    for trials in THROUGHPUT_TRIALS:
+    out, profiles = {}, {}
+    for trials in trial_counts:
         tr = RankAAETrainer(cfg, n_train=len(splits[0]), n_val=len(splits[2]), trials=trials,
                             device="cuda")
         state = tr.init_state(0)
@@ -856,14 +883,20 @@ def trial_throughput(torch, cfg, splits, card):
         assert torch.isfinite(log["metrics"]).all(), trials
         steady = seconds[1:]
         out[trials] = [trials * tr.n_train / sec for sec in steady]
-        print(f"8c T={trials}: epoch seconds {[round(x, 4) for x in seconds]}, steady "
-              f"spectra/s per GPU {[round(x, 1) for x in out[trials]]} "
+        print(f"{label} {cfg.ae_form} T={trials}: epoch seconds "
+              f"{[round(x, 4) for x in seconds]}, steady spectra/s per GPU "
+              f"{[round(x, 1) for x in out[trials]]} "
               f"({[round(x / trials, 1) for x in out[trials]]} a trial) [{card}]")
-    for trials in (THROUGHPUT_TRIALS[0], THROUGHPUT_TRIALS[-1]):
-        prof = profile_epoch(trials=trials)
-        prof.pop("top_kernels")
-        print(f"8c profile T={trials}: " + json.dumps(prof))
-    return out
+        del tr, state, log
+        torch.cuda.empty_cache()
+    for trials in (trial_counts[0], trial_counts[-1]):
+        prof = profile_epoch(ae_form=cfg.ae_form, trials=trials)
+        top = prof.pop("top_kernels")
+        profiles[trials] = prof
+        print(f"{label} profile {cfg.ae_form} T={trials}: " + json.dumps(prof))
+        print(f"{label} profile {cfg.ae_form} T={trials}, top kernels: " + json.dumps(
+            [(k["name"][:70], k["launches"], round(k["ms"], 3)) for k in top[:8]]))
+    return out, profiles
 
 
 # phase 9: resume (9a), recalibration (9b) and the report (9c)
@@ -1110,6 +1143,198 @@ def report_card_vs_cpu(torch, np, fb, work, cpu_work, label, card, figures, devi
           f"{ranked} [{card}]")
     return k3, walls
 
+# phase 10: every form stacked on the trial axis
+NORMAL_TRIALS_T = (1, 8)         # 10a: the normal form's throughput, T 1 beside T 8
+QVED_DIM = 12
+QVED_SPREAD_SAMPLES = 8
+
+
+def check_tree(np, work, trials, ae_form, dim):
+    """The artifact tree of a ``train_sc`` run: every job's files, every
+    bundle reloaded with the run's form and trials, each final model
+    encoding finitely on the CPU; the final metrics differ between trials."""
+    from rankaae_tpu_torch.models.inference import InferenceModel
+    from rankaae_tpu_torch.utils.checkpoint import load_model_bundle
+
+    assert os.path.isfile(os.path.join(work, "main_process_message.txt"))
+    jobs = sorted(os.listdir(os.path.join(work, "training")))
+    assert jobs == sorted(f"job_{i + 1}" for i in range(trials)), jobs
+    metrics = []
+    for job in jobs:
+        job_dir = os.path.join(work, "training", job)
+        assert set(os.listdir(job_dir)) == set(JOB_FILES) | {"checkpoints"}, job
+        chk = [c for c in os.listdir(os.path.join(job_dir, "checkpoints")) if c.endswith(".mpk")]
+        assert chk, job
+        for path in [os.path.join(job_dir, n) for n in BUNDLES] + \
+                [os.path.join(job_dir, "checkpoints", c) for c in chk]:
+            _, _, bcfg, _ = load_model_bundle(path)
+            assert bcfg.trials == trials and bcfg.ae_form == ae_form, path
+        _, _, _, extra = load_model_bundle(os.path.join(job_dir, "final.mpk"))
+        metrics.append(extra["final_metrics"])
+        z = InferenceModel.from_bundle(os.path.join(job_dir, "final.mpk"),
+                                       device="cpu").encode(np.ones((4, dim), np.float32))
+        assert np.all(np.isfinite(z)), job
+    metrics = np.asarray(metrics)
+    assert np.all(np.isfinite(metrics)) and len({tuple(m) for m in metrics}) == trials
+
+
+def normal_trials(torch, np, kc, fb, root, csv, cfg_path, card, expect):
+    """Phase 10a: ``train_sc`` of the normal form with the config's trials
+    in one wave (full width, batch 1024, EPOCHS epochs): the tree and its
+    bundles; K1 and K2 launched as often as phase 3's one-trial run, K3
+    once per trial in each of the EPOCHS validations' two eval-mode decodes
+    of the normal decoder's four fused blocks.  Returns the launches."""
+    from rankaae_tpu_torch.parallel import trials as port_trials
+    from rankaae_tpu_torch.utils.config import Parameters
+
+    trials = Parameters.from_yaml(cfg_path).get("trials")
+    work = work_dir(root, "normal_trials", csv, cfg_path, ae_form="normal", max_epoch=EPOCHS)
+    waves = []
+    real = port_trials._run_wave
+
+    def run_wave(cfg, data, n_trials, *args, **kw):
+        waves.append(n_trials)
+        return real(cfg, data, n_trials, *args, **kw)
+
+    port_trials._run_wave = run_wave
+    try:
+        sec, launches = run_train_sc(torch, kc, fb, work, "cuda")
+    finally:
+        port_trials._run_wave = real
+    assert_tickets_clear(kc, "after the normal form's train_sc")
+    want = {**expect, "fused_block": trials * EPOCHS * 2 * NORMAL_FUSED_BLOCKS}
+    assert waves == [trials], waves
+    assert launches == want, (launches, want)
+    check_tree(np, work, trials, "normal", 256)
+    print(f"10a train_sc: normal form, {trials} trials in one wave (waves {waves}), full "
+          f"width, batch 1024, {EPOCHS} epochs, {sec:.2f} s wall (data load, training, "
+          f"{trials * 4}+ bundles); tree and bundles checked; launches {launches} (expected "
+          f"{want}: one K1/K2 launch for all {trials} trials, K3 once a trial) [{card}]")
+    return launches
+
+
+def deterministic_cost(torch, cfg, splits, card, trials=4):
+    """Seconds of a steady normal-form epoch at ``trials`` with cuDNN's
+    deterministic algorithms off and on (two epochs each, the second
+    timed)."""
+    from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+
+    data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
+    out = {}
+    for det in (False, True, False):
+        torch.backends.cudnn.deterministic = det
+        tr = RankAAETrainer(cfg, n_train=len(splits[0]), n_val=len(splits[2]), trials=trials,
+                            device="cuda")
+        state = tr.init_state(0)
+        for epoch in range(2):
+            t0 = time.perf_counter()
+            state, _ = tr.epoch_step(state, epoch, data)
+            torch.cuda.synchronize()
+        out.setdefault(det, []).append(time.perf_counter() - t0)
+    torch.backends.cudnn.deterministic = False
+    print(f"10b cuDNN deterministic: a steady normal-form epoch at T {trials} "
+          f"{[round(x, 4) for x in out[True]]} s against {[round(x, 4) for x in out[False]]} "
+          f"s without [{card}]")
+    return out
+
+
+def make_qvec_csv(np, path, n_rows, seed):
+    """A qved dataset in the reference CSV's schema: 5 descriptors and 12
+    q-vector columns, the q-vectors the descriptors times a random 5 x 12
+    map plus noise (``tests/test_conv_forms_training.py:71-78``)."""
+    import pandas as pd
+
+    from rankaae_tpu_torch.data.synthetic import DESCRIPTOR_NAMES
+
+    rng = np.random.default_rng(seed)
+    aux = rng.normal(size=(n_rows, 5)).astype(np.float32)
+    qvec = (aux @ rng.normal(size=(5, QVED_DIM)).astype(np.float32)
+            + rng.normal(size=(n_rows, QVED_DIM)).astype(np.float32) * 0.1)
+    cols = [f"AUX_{n}" for n in DESCRIPTOR_NAMES] + [f"ENE_{i}.00" for i in range(QVED_DIM)]
+    idx = pd.MultiIndex.from_arrays([[f"mp-{i // 10}" for i in range(n_rows)],
+                                     list(range(n_rows))], names=["material", "site"])
+    pd.DataFrame(np.concatenate([aux, qvec], axis=1), columns=cols, index=idx).to_csv(path)
+    return aux, qvec
+
+
+def qved_trials(torch, np, kc, fb, root, cfg_path, card, expect, n_rows):
+    """Phase 10c: ``train_sc`` of the qved form (the config's trials, one
+    wave, EPOCHS epochs) on a seeded 12-dim dataset of ``n_rows`` rows: the
+    tree and its bundles, K1 and K2 launched as often as phase 3's; then
+    one faithful qved batch with each reconstruction target card vs CPU,
+    and ``job_1``'s final bundle served
+    by the CLI on the card and the CPU.  Returns the training launches."""
+    from rankaae_tpu_torch import serve
+    from rankaae_tpu_torch.tools.batch_spread import batch_spread
+    from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
+
+    params = Parameters.from_yaml(cfg_path)
+    trials = params.get("trials")
+    csv = os.path.join(root, "qvec.csv")
+    aux, qvec = make_qvec_csv(np, csv, n_rows, seed=3)
+    work = work_dir(root, "qved", csv, cfg_path, ae_form="qved", dim_in=QVED_DIM,
+                    dim_out=QVED_DIM, max_epoch=EPOCHS)
+    sec, launches = run_train_sc(torch, kc, fb, work, "cuda")
+    assert_tickets_clear(kc, "after the qved train_sc")
+    want = {**expect, "fused_block": 0}
+    assert launches == want, (launches, want)
+    check_tree(np, work, trials, "qved", QVED_DIM)
+    print(f"10c train_sc: qved form, {trials} trials in one wave, {n_rows} rows, {EPOCHS} "
+          f"epochs, {sec:.2f} s wall; tree and bundles checked; launches {launches} "
+          f"(expected {want}) [{card}]")
+
+    # one faithful batch, card vs CPU, with the plain MSE target and with
+    # the config's flex target.  The flex target divides each row's output
+    # mean by its input mean, and rows of these zero-mean q-vectors have
+    # input means down to ~2e-4: there float32 rounding of the inputs' sum
+    # moves the reconstruction loss (~70) by ~1e-2, which a perturbation of
+    # the weights does not show.  So each batch is held to phase 4's
+    # tolerances or twice the larger of its 1e-7 weight and input
+    # perturbation spreads on the CPU (tools/batch_spread.py), measured here
+    b = params.get("batch_size")
+    batch = (qvec[:b], aux[:b])
+    for flex in (False, True):
+        params.update({"ae_form": "qved", "dim_in": QVED_DIM, "dim_out": QVED_DIM,
+                       "dropout_rate": 0.0, "dis_dropout_rate": 0.0, "dis_noise": 0.0,
+                       "use_flex_spec_target": flex})
+        qcfg = TrainConfig.from_parameters(params)
+        spreads = [batch_spread(qcfg, b, samples=QVED_SPREAD_SAMPLES, data=batch, perturb=p)
+                   for p in ("weights", "inputs")]
+        loss_atol = {k: max(PARITY_ATOL, 2 * max(sp["losses"][k] for sp in spreads))
+                     for k in spreads[0]["losses"]}
+        leaf_atol = {k: max(LEAF_ATOL, 2 * max(sp["leaves"][k]["max_abs"] for sp in spreads))
+                     for k in spreads[0]["leaves"]}
+        leaf_rtol = max(LEAF_RTOL, 2 * max(v["max_rel"] for sp in spreads
+                                           for v in sp["leaves"].values()))
+        loss_err, worst, l_cpu, l_gpu = batch_parity(torch, np, qcfg, loss_atol, leaf_atol,
+                                                     leaf_rtol, data=batch)
+        target = "flex target" if flex else "plain MSE target"
+        print(f"10c parity: one faithful qved batch (B={b}, {target}), card vs CPU: per loss "
+              + json.dumps({n: abs(l_cpu[n] - l_gpu[n]) for n in l_cpu})
+              + f"; CPU spread over {QVED_SPREAD_SAMPLES} 1e-7 perturbations of the weights "
+              + json.dumps(spreads[0]["losses"]) + ", of the inputs "
+              + json.dumps(spreads[1]["losses"])
+              + f" (atol {json.dumps(loss_atol)}: phase 4's, or twice the larger spread); "
+              f"leaves max params {worst['params']:.3g}, stats {worst['stats']:.3g} (atol "
+              f"{json.dumps(leaf_atol)}), worst per-leaf relative norm {worst['rel']:.3g} "
+              f"(rtol {leaf_rtol:.3g}) [{card}]")
+
+    final = os.path.join(work, "training", "job_1", "final.mpk")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        serve.main([final, csv, os.path.join(root, f"qved_{dev}"), "--batch-size", "1024",
+                    "--device", dev])
+        out[dev] = [np.loadtxt(os.path.join(root, f"qved_{dev}_{k}.txt"))
+                    for k in ("styles", "recon")]
+    (z_gpu, y_gpu), (z_cpu, y_cpu) = out["cuda"], out["cpu"]
+    assert z_gpu.shape == (n_rows, 6) and y_gpu.shape == (n_rows, QVED_DIM), \
+        (z_gpu.shape, y_gpu.shape)
+    z_err, y_err = np.abs(z_gpu - z_cpu).max(), np.abs(y_gpu - y_cpu).max()
+    print(f"10c serve: job_1's final qved bundle by the CLI, {n_rows} q-vectors: card vs CPU "
+          f"styles {z_err:.3g}, reconstructions {y_err:.3g} (atol {SERVE_ATOL}) [{card}]")
+    assert z_err <= SERVE_ATOL and y_err <= SERVE_ATOL, (z_err, y_err)
+    return launches
+
 
 def main() -> int:
     import numpy as np
@@ -1295,10 +1520,11 @@ def main() -> int:
         t0 = time.perf_counter()
         recal_work, recal_launches = recalibrated_trials(torch, np, kc, fb, tmp9, csv8,
                                                          cfg_path, card)
-        # each wave of one: the validations' two eval-mode decodes, then one
-        # amplitude_gain reconstruction of each of the three bundles
-        want = {"kendall_pair_sums": RECAL_TRIALS * RECAL_EPOCHS * (n_batch + 1),
-                "kendall_grad_rows": RECAL_TRIALS * RECAL_EPOCHS * n_batch,
+        # one wave: one K1/K2 launch for both trials; K3 once a trial in the
+        # validations' two eval-mode decodes, then one amplitude_gain
+        # reconstruction of each of the three bundles
+        want = {"kendall_pair_sums": RECAL_EPOCHS * (n_batch + 1),
+                "kendall_grad_rows": RECAL_EPOCHS * n_batch,
                 "fused_block": RECAL_TRIALS * (RECAL_EPOCHS * 2 + 3) * NORMAL_FUSED_BLOCKS}
         assert recal_launches == want, (recal_launches, want)
         print(f"9b: {time.perf_counter() - t0:.1f} s")
@@ -1323,15 +1549,49 @@ def main() -> int:
         print(f"9c: {time.perf_counter() - t0:.1f} s; phases 1-9: "
               f"{time.perf_counter() - t_start:.1f} s")
 
+        # ---- 10. every form stacked on the trial axis -------------------- #
+        t0 = time.perf_counter()
+        normal_launches = normal_trials(torch, np, kc, fb, tmp9, csv8, cfg_path, card, expect)
+        ncfg = cfg.replace(ae_form="normal")
+        trial_throughput(torch, ncfg, splits, card, NORMAL_TRIALS_T, label="10a")
+        print(f"10a: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        deterministic_cost(torch, ncfg, splits, card)
+        torch.backends.cudnn.deterministic = True
+        try:
+            icfg = ncfg.replace(lr_base=INDEPENDENCE_LR)
+            err, spread = trial_independence(torch, np, icfg, splits)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        print(f"10b lr_base {INDEPENDENCE_LR}: trial 2 of 4 (seed 10) vs the 1-trial run with "
+              f"seed 12, normal form with the config's dropout and noise, 2 epochs on the "
+              f"card, cuDNN deterministic: " + json.dumps(err)
+              + "; the 1-trial run against itself with its weights perturbed by 1e-7: "
+              + json.dumps(spread))
+        bounds = {"train": max(PARITY_ATOL, 2 * spread["train"]),
+                  "leaf": max(LEAF_ATOL, 2 * spread["leaf"]),
+                  "rel": max(LEAF_RTOL, 2 * spread["rel"])}
+        assert all(err[k] <= v for k, v in bounds.items()), (err, spread, bounds)
+        print(f"10b: held within {json.dumps(bounds)} (phase 4's tolerances, or twice the "
+              f"perturbation spread where that is larger); {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        qved_launches = qved_trials(torch, np, kc, fb, tmp9, cfg_path, card, expect, n_rows)
+        print(f"10c: {time.perf_counter() - t0:.1f} s; phases 1-10: "
+              f"{time.perf_counter() - t_start:.1f} s")
+
     for name in ("kendall_pair_sums", "kendall_grad_rows"):
         launches[name] += conv_launches[name] + trial_launches[name] + recal_launches[name] \
-            + sum(run[1][name] for run in resume_runs.values())
+            + sum(run[1][name] for run in resume_runs.values()) + normal_launches[name] \
+            + qved_launches[name]
     k3_launches += conv_launches["fused_block"] + conv_launches["fused_block_serve"] \
-        + recal_launches["fused_block"] + sum(report_k3.values())
+        + recal_launches["fused_block"] + sum(report_k3.values()) \
+        + normal_launches["fused_block"]
     print(f"main-path launches: K1 {launches['kendall_pair_sums']}, K2 "
-          f"{launches['kendall_grad_rows']} (phase 3, 7a, 8a, 9a and 9b training), K3 "
-          f"{k3_launches} (phase 6 CLI, 7a training and CLI, 9b training and amplitude "
-          f"gains, 9c reports)")
+          f"{launches['kendall_grad_rows']} (phase 3, 7a, 8a, 9a, 9b, 10a and 10c training), "
+          f"K3 {k3_launches} (phase 6 CLI, 7a training and CLI, 9b training and amplitude "
+          f"gains, 9c reports, 10a training)")
 
     rows = []
     for name, line in (("kendall_pair_sums", 49), ("kendall_grad_rows", 91)):
@@ -1356,7 +1616,7 @@ def main() -> int:
     print("library_ms: null — no single PyTorch call computes the Kendall pair sums "
           "or their gradient rows, nor the fused EncodingBlock (two convs, BNs, PReLUs, "
           "residual and excitation MLP); K3's row is at the serving shape C 4, B 1024; "
-          "launches are the main paths' (phases 3, 6, 7a, 8a, 9a, 9b and 9c)")
+          "launches are the main paths' (phases 3, 6, 7a, 8a, 9a, 9b, 9c, 10a and 10c)")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

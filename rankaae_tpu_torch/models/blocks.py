@@ -6,28 +6,25 @@ Each block sums three branches — a 2-conv main path, a strided/grouped
 shortcut, and a squeeze-excitation-like MLP over the length axis — with
 per-channel PReLU (init 0.01) and affine-free BatchNorm throughout.
 Submodule names are the flax module's, so the weight bridge maps them one to
-one.
+one.  The blocks build their layers through ``primitives.layers_of``:
+``TrialEncodingBlock`` and ``TrialDecodingBlock`` are the blocks stacked T
+times, over (B, T*C, L) with trial t's channels at [t*C, (t+1)*C).
 
 In eval mode, an :class:`EncodingBlock` of K3's shape (stride 1, c_in ==
 c_out in (2, 4), length 256, 11 taps, excitation 2: the decoders' tail) runs
-as one call of ``ops/fused_block_cuda.fused_block``, which launches the K3
-kernel on a CUDA tensor.  Every other block, and every block in train mode,
-runs its modules one by one.
+as ``ops/fused_block_cuda.fused_block``, which launches the K3 kernel on a
+CUDA tensor; stacked, it launches K3 once per trial
+(``fused_block_trials``).  Every other block, and every block in train
+mode, runs its modules one by one.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 from torch import nn
 
-from rankaae_tpu_torch.models.primitives import (
-    BatchNorm,
-    Conv1d,
-    ConvTranspose1d,
-    Dropout,
-    Linear,
-    PReLU,
-)
+from rankaae_tpu_torch.models.primitives import TrialModule, layers_of
 from rankaae_tpu_torch.ops import fused_block_cuda
 
 
@@ -46,6 +43,7 @@ class EncodingBlock(nn.Module):
                  kernel_size: int = 7, stride: int = 2, excitation: int = 4,
                  dropout_rate: float = 0.2):
         super().__init__()
+        layers = layers_of(self)
         c_in, c_out, k = in_channels, out_channels, kernel_size
         self.has_bn1 = c_in > 1
         self.has_short = stride > 1 or c_in != c_out
@@ -55,37 +53,39 @@ class EncodingBlock(nn.Module):
                       and in_len == out_len == fused_block_cuda.L
                       and k == fused_block_cuda.K and excitation == fused_block_cuda.E)
         if self.has_bn1:
-            self.bn1 = BatchNorm(c_in)
-        self.conv1 = Conv1d(c_in, c_out, k, stride=in_len // (out_len * stride),
-                            padding=(k - 1) // 2, padding_mode="replicate")
-        self.relu1 = PReLU(c_out)
-        self.bn2 = BatchNorm(c_out)
-        self.conv2 = Conv1d(c_out, c_out, k, stride=stride, padding=(k - 1) // 2)
-        self.relu2 = PReLU(c_out)
+            self.bn1 = layers.channel_batch_norm(c_in)
+        self.conv1 = layers.conv(c_in, c_out, k, stride=in_len // (out_len * stride),
+                                 padding=(k - 1) // 2, padding_mode="replicate")
+        self.relu1 = layers.channel_prelu(c_out)
+        self.bn2 = layers.channel_batch_norm(c_out)
+        self.conv2 = layers.conv(c_out, c_out, k, stride=stride, padding=(k - 1) // 2)
+        self.relu2 = layers.channel_prelu(c_out)
         if self.has_short:
-            self.conv_short = Conv1d(c_in, c_out, in_len // out_len, stride=in_len // out_len,
-                                     groups=math.gcd(c_in, c_out))
-            self.relu_short = PReLU(c_out)
+            self.conv_short = layers.conv(c_in, c_out, in_len // out_len,
+                                          stride=in_len // out_len, groups=math.gcd(c_in, c_out))
+            self.relu_short = layers.channel_prelu(c_out)
         if self.has_dropout:
-            self.dropout_1 = Dropout(dropout_rate)
-        self.fc1 = Linear(in_len, excitation)
-        self.relu_excit_1 = PReLU(c_in)
-        self.fc2 = Linear(excitation, out_len)
-        self.relu_excit_2 = PReLU(c_in)
+            self.dropout_1 = layers.channel_dropout(dropout_rate)
+        self.fc1 = layers.length_linear(in_len, excitation)
+        self.relu_excit_1 = layers.channel_prelu(c_in)
+        self.fc2 = layers.length_linear(excitation, out_len)
+        self.relu_excit_2 = layers.channel_prelu(c_in)
         if self.has_excit_conv:
-            self.bn_excit = BatchNorm(c_in)
-            self.conv_excit = Conv1d(c_in, c_out, 1, groups=math.gcd(c_in, c_out))
-            self.relu_excit_3 = PReLU(c_out)
+            self.bn_excit = layers.channel_batch_norm(c_in)
+            self.conv_excit = layers.conv(c_in, c_out, 1, groups=math.gcd(c_in, c_out))
+            self.relu_excit_3 = layers.channel_prelu(c_out)
 
     def forward(self, x, sampler=None):
         if self.fused and not self.training:
-            return fused_block_cuda.fused_block(
-                x.contiguous(), self.bn1.running_mean, self.bn1.running_var,
-                self.conv1.weight, self.conv1.bias, self.relu1.weight,
-                self.bn2.running_mean, self.bn2.running_var,
-                self.conv2.weight, self.conv2.bias, self.relu2.weight,
-                self.fc1.weight, self.fc1.bias, self.relu_excit_1.weight,
-                self.fc2.weight, self.fc2.bias, self.relu_excit_2.weight)
+            params = (self.bn1.running_mean, self.bn1.running_var,
+                      self.conv1.weight, self.conv1.bias, self.relu1.weight,
+                      self.bn2.running_mean, self.bn2.running_var,
+                      self.conv2.weight, self.conv2.bias, self.relu2.weight,
+                      self.fc1.weight, self.fc1.bias, self.relu_excit_1.weight,
+                      self.fc2.weight, self.fc2.bias, self.relu_excit_2.weight)
+            if isinstance(self, TrialModule):
+                return fused_block_cuda.fused_block_trials(x, *params)
+            return fused_block_cuda.fused_block(x.contiguous(), *params)
         out = self.bn1(x) if self.has_bn1 else x
         residual = out
         out = self.relu1(self.conv1(out))
@@ -105,33 +105,34 @@ class DecodingBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, in_len: int,
                  excitation: int = 4, dropout_rate: float = 0.2, out_len: int = -1):
         super().__init__()
+        layers = layers_of(self)
         c_in, c_out = in_channels, out_channels
         out_len = out_len if out_len > 0 else in_len * 4
         self.has_bn1 = in_len > 1
         self.has_dropout = in_len > 10
         self.has_excit_conv = c_in != c_out
         if self.has_bn1:
-            self.bn1 = BatchNorm(c_in)
-        self.conv1 = ConvTranspose1d(c_in, c_out, kernel_size=2, stride=2)
-        self.relu1 = PReLU(c_out)
-        self.bn2 = BatchNorm(c_out)
+            self.bn1 = layers.channel_batch_norm(c_in)
+        self.conv1 = layers.conv_transpose(c_in, c_out, kernel_size=2, stride=2)
+        self.relu1 = layers.channel_prelu(c_out)
+        self.bn2 = layers.channel_batch_norm(c_out)
         s2 = out_len // (in_len * 2)
-        self.conv2 = ConvTranspose1d(c_out, c_out, kernel_size=s2, stride=s2)
-        self.relu2 = PReLU(c_out)
+        self.conv2 = layers.conv_transpose(c_out, c_out, kernel_size=s2, stride=s2)
+        self.relu2 = layers.channel_prelu(c_out)
         ss = out_len // in_len
-        self.conv_short = ConvTranspose1d(c_in, c_out, kernel_size=ss, stride=ss,
-                                          groups=math.gcd(c_in, c_out))
-        self.relu_short = PReLU(c_out)
+        self.conv_short = layers.conv_transpose(c_in, c_out, kernel_size=ss, stride=ss,
+                                                groups=math.gcd(c_in, c_out))
+        self.relu_short = layers.channel_prelu(c_out)
         if self.has_dropout:
-            self.dropout_1 = Dropout(dropout_rate)
-        self.fc1 = Linear(in_len, excitation)
-        self.relu_excit_1 = PReLU(c_in)
-        self.fc2 = Linear(excitation, out_len)
-        self.relu_excit_2 = PReLU(c_in)
+            self.dropout_1 = layers.channel_dropout(dropout_rate)
+        self.fc1 = layers.length_linear(in_len, excitation)
+        self.relu_excit_1 = layers.channel_prelu(c_in)
+        self.fc2 = layers.length_linear(excitation, out_len)
+        self.relu_excit_2 = layers.channel_prelu(c_in)
         if self.has_excit_conv:
-            self.bn_excit = BatchNorm(c_in)
-            self.conv_excit = Conv1d(c_in, c_out, 1, groups=math.gcd(c_in, c_out))
-            self.relu_excit_3 = PReLU(c_out)
+            self.bn_excit = layers.channel_batch_norm(c_in)
+            self.conv_excit = layers.conv(c_in, c_out, 1, groups=math.gcd(c_in, c_out))
+            self.relu_excit_3 = layers.channel_prelu(c_out)
 
     def forward(self, x, sampler=None):
         out = self.bn1(x) if self.has_bn1 else x
@@ -150,3 +151,20 @@ def _excitation(block, excit):
     if block.has_excit_conv:
         excit = block.relu_excit_3(block.conv_excit(block.bn_excit(excit)))
     return excit
+
+
+class TrialEncodingBlock(TrialModule, EncodingBlock):
+    """``trials`` independent :class:`EncodingBlock`s over (B, T*C_in, L)."""
+
+
+class TrialDecodingBlock(TrialModule, DecodingBlock):
+    """``trials`` independent :class:`DecodingBlock`s over (B, T*C_in, L)."""
+
+
+def blocks_of(module: nn.Module):
+    """The (EncodingBlock, DecodingBlock) classes ``module`` builds from:
+    the stacked ones bound to its ``trials`` for a ``TrialModule``."""
+    if not isinstance(module, TrialModule):
+        return EncodingBlock, DecodingBlock
+    return (functools.partial(TrialEncodingBlock, module.trials),
+            functools.partial(TrialDecodingBlock, module.trials))

@@ -5,22 +5,22 @@ The last-layer activation is ReLU or Softplus(beta=2) per
 ``decoder_activation``.  Submodule names follow the flax modules'
 (``dblock{i}``, ``eblock{i}``, ``bn_out``, ``conv_out``).  The conv
 decoders end in stride-1 length-256 EncodingBlocks; in eval mode their
-c_in == c_out ones run as the K3 kernel on the card (``models/blocks.py``).
-``TrialFCDecoder`` is ``FCDecoder`` stacked on a leading trial axis.
+c_in == c_out ones run as the K3 kernel on the card (``models/blocks.py``;
+stacked, one launch per trial).  Each ``Trial*`` class is its single-trial
+class stacked T times: it takes (T, B, nstyle) and returns (T, B, dim_out).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from rankaae_tpu_torch.models.blocks import DecodingBlock, EncodingBlock
+from rankaae_tpu_torch.models.blocks import blocks_of
 from rankaae_tpu_torch.models.primitives import (
-    BatchNorm,
-    Conv1d,
-    Dropout,
     TrialModule,
+    from_channels,
     layers_of,
     softplus_beta,
+    to_channels,
 )
 
 
@@ -40,17 +40,17 @@ class FCDecoder(nn.Module):
                  last_layer_activation: str = "ReLu", n_layers: int = 3,
                  hidden_size: int = 64):
         super().__init__()
-        lin, prelu, bn = layers_of(self)
+        layers = layers_of(self)
         self.n_layers = n_layers
         self.act = _last_act(last_layer_activation)
         width = nstyle
         for i in range(n_layers - 1):
-            self.add_module(f"lin{i}", lin(width, hidden_size))
-            self.add_module(f"prelu{i}", prelu(hidden_size))
-            self.add_module(f"bn{i}", bn(hidden_size))
-            self.add_module(f"drop{i}", Dropout(dropout_rate))
+            self.add_module(f"lin{i}", layers.linear(width, hidden_size))
+            self.add_module(f"prelu{i}", layers.prelu(hidden_size))
+            self.add_module(f"bn{i}", layers.batch_norm(hidden_size))
+            self.add_module(f"drop{i}", layers.dropout(dropout_rate))
             width = hidden_size
-        self.lin_out = lin(width, dim_out)
+        self.lin_out = layers.linear(width, dim_out)
 
     def forward(self, z, sampler=None):
         x = z
@@ -79,26 +79,28 @@ class _ConvDecoder(nn.Module):
     def __init__(self, nstyle: int = 5, dropout_rate: float = 0.2, dim_out: int = 256,
                  last_layer_activation: str = "ReLu", n_layers: int = 3):
         super().__init__()
+        layers = layers_of(self)
+        encoding_block, decoding_block = blocks_of(self)
         self.act = _last_act(last_layer_activation)
         for i, (c_in, c_out, in_len, e, out_len) in enumerate(self.DEC):
-            self.add_module(f"dblock{i}", DecodingBlock(
+            self.add_module(f"dblock{i}", decoding_block(
                 nstyle if c_in is None else c_in, c_out, in_len, excitation=e,
                 dropout_rate=dropout_rate, out_len=out_len))
         for i, (c_in, c_out) in enumerate(self.ENC):
-            self.add_module(f"eblock{i}", EncodingBlock(
+            self.add_module(f"eblock{i}", encoding_block(
                 c_in, c_out, in_len=256, out_len=dim_out if i == len(self.ENC) - 1 else 256,
                 kernel_size=11, stride=1, excitation=2, dropout_rate=dropout_rate))
         c_last = self.ENC[-1][1]
-        self.bn_out = BatchNorm(c_last)
-        self.conv_out = Conv1d(c_last, 1, 1)
+        self.bn_out = layers.channel_batch_norm(c_last)
+        self.conv_out = layers.conv(c_last, 1, 1)
 
     def forward(self, z, sampler=None):
-        x = z[:, :, None]
+        x = to_channels(self, z[..., None])
         for i in range(len(self.DEC)):
             x = getattr(self, f"dblock{i}")(x, sampler)
         for i in range(len(self.ENC)):
             x = getattr(self, f"eblock{i}")(x, sampler)
-        return self.act(self.conv_out(self.bn_out(x))[:, 0, :])
+        return self.act(from_channels(self, self.conv_out(self.bn_out(x)))[..., 0, :])
 
 
 class Decoder(_ConvDecoder):
@@ -115,9 +117,52 @@ class Decoder(_ConvDecoder):
         super().__init__(nstyle, dropout_rate, 256, last_layer_activation, n_layers)
 
 
+class TrialDecoder(TrialModule, Decoder):
+    """``trials`` independent "normal" decoders over (T, B, nstyle)."""
+
+
 class CompactDecoder(_ConvDecoder):
     """Compact conv decoder (reference ``model.py:430-474``): 3
     DecodingBlocks (1 -> 8 -> 64 -> 256), then one 4->4 EncodingBlock."""
 
     DEC = ((None, 8, 1, 1, 8), (8, 4, 8, 2, 64), (4, 4, 64, 4, -1))
     ENC = ((4, 4),)
+
+
+class TrialCompactDecoder(TrialModule, CompactDecoder):
+    """``trials`` independent compact decoders over (T, B, nstyle)."""
+
+
+class QvecDecoder(nn.Module):
+    """MLP decoder to 12-dim q-vectors, main + shortcut summed (``qved``
+    form; ``rankaae_tpu/models/decoders.py:135-165``, reference
+    ``model.py:477-515``).  The last-layer activation acts inside the main
+    branch, after ``main_lin2``; the sum is not activated."""
+
+    def __init__(self, nstyle: int = 5, dropout_rate: float = 0.2, dim_out: int = 12,
+                 last_layer_activation: str = "ReLu", n_layers: int = 3):
+        super().__init__()
+        layers = layers_of(self)
+        self.act = _last_act(last_layer_activation)
+        self.main_lin0 = layers.linear(nstyle, 4)
+        self.main_bn0 = layers.batch_norm(4)
+        self.main_lin1 = layers.linear(4, 6)
+        self.main_bn1 = layers.batch_norm(6)
+        self.main_lin2 = layers.linear(6, 8)
+        self.main_drop = layers.dropout(dropout_rate)
+        self.main_lin3 = layers.linear(8, dim_out)
+        self.short_lin0 = layers.linear(nstyle, 8)
+        self.short_drop = layers.dropout(dropout_rate)
+        self.short_lin1 = layers.linear(8, dim_out)
+
+    def forward(self, z, sampler=None):
+        x = self.main_bn0(torch.relu(self.main_lin0(z)))
+        x = self.main_bn1(torch.relu(self.main_lin1(x)))
+        x = self.main_drop(self.act(self.main_lin2(x)), sampler)
+        x = self.main_lin3(x)
+        s = self.short_drop(torch.relu(self.short_lin0(z)), sampler)
+        return x + self.short_lin1(s)
+
+
+class TrialQvecDecoder(TrialModule, QvecDecoder):
+    """``trials`` independent qved decoders over (T, B, nstyle)."""

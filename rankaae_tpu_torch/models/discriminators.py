@@ -4,8 +4,9 @@
 
 Both add N(0, noise) to the input **in training mode only** and pass it
 through the GRL before the classifier.  ``beta=None`` skips the reversal.
-``TrialDiscriminatorFC`` is ``DiscriminatorFC`` stacked on a leading trial
-axis, with a per-trial ``beta`` of shape (T, 1, 1).
+Each ``Trial*`` class is its single-trial class stacked T times: it takes
+(T, B, nstyle) and a per-trial ``beta`` of shape (T, 1, 1); the CNN one runs
+its convolutions over (B, T*C, 64) and takes its ``log_softmax`` per trial.
 """
 from __future__ import annotations
 
@@ -13,15 +14,7 @@ import torch
 from torch import nn
 
 from rankaae_tpu_torch.models.grl import grad_reverse
-from rankaae_tpu_torch.models.primitives import (
-    BatchNorm,
-    Conv1d,
-    Dropout,
-    Linear,
-    PReLU,
-    TrialModule,
-    layers_of,
-)
+from rankaae_tpu_torch.models.primitives import TrialModule, from_channels, layers_of, to_channels
 
 
 def _noise_and_reverse(module, x, beta, sampler):
@@ -38,16 +31,16 @@ class DiscriminatorFC(nn.Module):
     def __init__(self, nstyle: int = 5, hidden_size: int = 64, dropout_rate: float = 0.2,
                  noise: float = 0.1, layers: int = 3):
         super().__init__()
-        lin, prelu, _ = layers_of(self)
+        make = layers_of(self)
         self.layers = layers
         self.noise = float(noise)
         width = nstyle
         for i in range(layers - 1):
-            self.add_module(f"lin{i}", lin(width, hidden_size))
-            self.add_module(f"prelu{i}", prelu(hidden_size))
-            self.add_module(f"drop{i}", Dropout(dropout_rate))
+            self.add_module(f"lin{i}", make.linear(width, hidden_size))
+            self.add_module(f"prelu{i}", make.prelu(hidden_size))
+            self.add_module(f"drop{i}", make.dropout(dropout_rate))
             width = hidden_size
-        self.lin_out = lin(width, 1)
+        self.lin_out = make.linear(width, 1)
 
     def forward(self, x, beta=None, sampler=None):
         out = _noise_and_reverse(self, x, beta, sampler)
@@ -70,24 +63,30 @@ class DiscriminatorCNN(nn.Module):
     def __init__(self, nstyle: int = 5, hidden_size: int = 64, channels: int = 2,
                  kernel_size: int = 5, dropout_rate: float = 0.2, noise: float = 0.1):
         super().__init__()
+        layers = layers_of(self)
         self.noise = float(noise)
-        self.pre_lin = Linear(nstyle, hidden_size)
-        self.pre_prelu = PReLU(hidden_size)
+        self.pre_lin = layers.linear(nstyle, hidden_size)
+        self.pre_prelu = layers.prelu(hidden_size)
         ch = channels
         self.chans = [(1, ch), (ch, ch), (ch, ch), (ch, ch), (ch, 1)]
         for i, (ci, co) in enumerate(self.chans):
-            self.add_module(f"bn{i}", BatchNorm(ci))
-            self.add_module(f"conv{i}", Conv1d(ci, co, kernel_size, padding=(kernel_size - 1) // 2,
-                                               padding_mode="replicate"))
-            self.add_module(f"prelu{i}", PReLU(co))
-        self.post_bn = BatchNorm(hidden_size)
-        self.post_drop = Dropout(dropout_rate)
-        self.post_lin = Linear(hidden_size, 2)
+            self.add_module(f"bn{i}", layers.channel_batch_norm(ci))
+            self.add_module(f"conv{i}", layers.conv(ci, co, kernel_size,
+                                                    padding=(kernel_size - 1) // 2,
+                                                    padding_mode="replicate"))
+            self.add_module(f"prelu{i}", layers.channel_prelu(co))
+        self.post_bn = layers.batch_norm(hidden_size)
+        self.post_drop = layers.dropout(dropout_rate)
+        self.post_lin = layers.linear(hidden_size, 2)
 
     def forward(self, x, beta=None, sampler=None):
         x = _noise_and_reverse(self, x, beta, sampler)
-        x = self.pre_prelu(self.pre_lin(x))[:, None, :]
+        x = to_channels(self, self.pre_prelu(self.pre_lin(x))[..., None, :])
         for i in range(len(self.chans)):
             x = getattr(self, f"prelu{i}")(getattr(self, f"conv{i}")(getattr(self, f"bn{i}")(x)))
-        x = self.post_drop(self.post_bn(x[:, 0, :]), sampler)
-        return torch.log_softmax(self.post_lin(x), dim=1)
+        x = self.post_drop(self.post_bn(from_channels(self, x)[..., 0, :]), sampler)
+        return torch.log_softmax(self.post_lin(x), dim=-1)
+
+
+class TrialDiscriminatorCNN(TrialModule, DiscriminatorCNN):
+    """``trials`` independent CNN discriminators over (T, B, nstyle)."""

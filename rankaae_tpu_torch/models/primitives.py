@@ -15,23 +15,31 @@
   restricted to kernel == stride, the only case the model zoo uses (weight
   (in, out/groups, k)).  Both layouts are also the flax modules'.
 
-The trial-stacked primitives carry T independent trials on a leading axis
-and take (T, B, C) inputs: ``TrialLinear`` (weight (T, out, in), bias
+The trial-stacked primitives carry T independent trials.  Over features
+they take (T, B, C) inputs: ``TrialLinear`` (weight (T, out, in), bias
 (T, out), one ``baddbmm``), ``TrialPReLU`` ((T, C)) and ``TrialBatchNorm``
 (running statistics (T, C); one ``F.batch_norm`` over the (B, T*C) view, so
-every statistic is per trial).  Dropout needs no stacked class: ``Dropout``
-asks its sampler for the keep-mask, and a
-:class:`~rankaae_tpu_torch.utils.sampler.TrialSampler` draws it per trial.
-Trial t of a stacked module holds the numbers of one single-trial module:
-:class:`TrialModule` exports and imports them in that module's
-``state_dict`` layout, and :func:`reset_parameters` with ``trial=t`` draws
-them in that module's order.
+every statistic is per trial).  Over channels they take (B, T*C, L) inputs,
+trial t's channels at [t*C, (t+1)*C): ``TrialConv1d`` and
+``TrialConvTranspose1d`` (weight (T, ...) of the single layout, one grouped
+convolution with T times the groups), ``TrialChannelPReLU``,
+``TrialChannelBatchNorm`` (one ``F.batch_norm`` over the T*C channels),
+``TrialLengthLinear`` (a ``TrialLinear`` over the length axis, through a
+(T, B*C, L) copy) and ``TrialChannelDropout``.  ``Dropout`` asks its sampler
+for the keep-mask, and a :class:`~rankaae_tpu_torch.utils.sampler.TrialSampler`
+draws it per trial with the trial axis leading, so the channel-layout
+dropout draws (T, B, C, L) and moves the trial axis.  Trial t of a stacked
+module holds the numbers of one single-trial module: :class:`TrialModule`
+exports and imports them in that module's ``state_dict`` layout, and
+:func:`reset_parameters` with ``trial=t`` draws them in that module's
+order.  A module builds its layers through :func:`layers_of`, which gives
+the single-trial classes or the stacked ones.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -105,8 +113,10 @@ class Dropout(nn.Module):
         if sampler is None:
             raise ValueError("train-mode dropout needs a sampler")
         keep = 1.0 - self.rate
-        mask = sampler.keep_mask(x.shape, keep)
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return torch.where(self._keep_mask(x, sampler, keep), x / keep, torch.zeros_like(x))
+
+    def _keep_mask(self, x, sampler, keep):
+        return sampler.keep_mask(x.shape, keep)
 
 
 # ---------------------------------------------------------------------------
@@ -158,14 +168,144 @@ class TrialBatchNorm(nn.Module):
         return y.view(b, t, c).transpose(0, 1)
 
 
-def layers_of(module: nn.Module):
-    """The (Linear, PReLU, BatchNorm) classes ``module`` builds its layers
-    from: the stacked ones bound to its ``trials`` for a
-    :class:`TrialModule`, else the single-trial ones."""
+class TrialConv1d(nn.Module):
+    """T independent ``nn.Conv1d``s over (B, T*C_in, L): weight (T, C_out,
+    C_in/groups, k), bias (T, C_out), run as one convolution with
+    T*groups groups; replicate padding goes through ``F.pad`` first, as in
+    ``nn.Conv1d``."""
+
+    def __init__(self, trials: int, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, padding_mode: str = "zeros",
+                 groups: int = 1):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.replicate = padding_mode == "replicate"
+        self.weight = nn.Parameter(
+            torch.empty(trials, out_channels, in_channels // groups, kernel_size))
+        self.bias = nn.Parameter(torch.empty(trials, out_channels))
+
+    def forward(self, x):
+        pad = self.padding
+        if self.replicate and pad:
+            x, pad = F.pad(x, (pad, pad), mode="replicate"), 0
+        return F.conv1d(x, self.weight.flatten(0, 1), self.bias.flatten(), self.stride, pad,
+                        1, self.weight.shape[0] * self.groups)
+
+
+class TrialConvTranspose1d(nn.Module):
+    """T independent :class:`ConvTranspose1d`s (kernel == stride) over
+    (B, T*C_in, L): weight (T, C_in, C_out/groups, k), bias (T, C_out), one
+    transposed convolution with T*groups groups."""
+
+    def __init__(self, trials: int, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, groups: int = 1):
+        super().__init__()
+        if kernel_size != stride:
+            raise ValueError("only kernel_size == stride is supported, as in the reference "
+                             "architectures (sc/clustering/model.py:114-119,140)")
+        self.stride, self.groups = stride, groups
+        self.weight = nn.Parameter(
+            torch.empty(trials, in_channels, out_channels // groups, kernel_size))
+        self.bias = nn.Parameter(torch.empty(trials, out_channels))
+
+    def forward(self, x):
+        return F.conv_transpose1d(x, self.weight.flatten(0, 1), self.bias.flatten(),
+                                  self.stride, 0, 0, self.weight.shape[0] * self.groups)
+
+
+class TrialChannelPReLU(TrialPReLU):
+    """:class:`TrialPReLU` over the channels of (B, T*C, L): one ``F.prelu``
+    with the T*C weights, as ``nn.PReLU`` runs it."""
+
+    def forward(self, x):
+        return F.prelu(x, self.weight.view(-1))
+
+
+class TrialChannelBatchNorm(TrialBatchNorm):
+    """:class:`TrialBatchNorm` over the channels of (B, T*C, L): one batch
+    norm over the T*C channels, each normalised over (B, L)."""
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean.view(-1), self.running_var.view(-1), None,
+                            None, self.training, 0.1, 1e-5)
+
+
+class TrialLengthLinear(TrialLinear):
+    """:class:`TrialLinear` over the length axis of (B, T*C, L_in) ->
+    (B, T*C, L_out): trial t's (B*C, L_in) rows in one ``baddbmm``."""
+
+    def forward(self, x):
+        t = self.weight.shape[0]
+        b, tc, length = x.shape
+        rows = x.reshape(b, t, tc // t, length).transpose(0, 1).reshape(t, -1, length)
+        y = super().forward(rows)
+        return y.view(t, b, tc // t, -1).transpose(0, 1).reshape(b, tc, -1)
+
+
+class TrialChannelDropout(Dropout):
+    """:class:`Dropout` over (B, T*C, L): the keep-mask is drawn (T, B, C, L),
+    trial t's from its own generator, as the single-trial (B, C, L) one."""
+
+    def __init__(self, trials: int, rate: float):
+        super().__init__(rate)
+        self.trials = trials
+
+    def _keep_mask(self, x, sampler, keep):
+        b, tc, length = x.shape
+        mask = sampler.keep_mask((self.trials, b, tc // self.trials, length), keep)
+        return mask.transpose(0, 1).reshape(x.shape)
+
+
+class Layers(NamedTuple):
+    """The layer classes a module builds from.  Over features ((B, C), or
+    (T, B, C) stacked): ``linear``, ``prelu``, ``batch_norm``, ``dropout``.
+    Over channels ((B, C, L), or (B, T*C, L) stacked): ``conv``,
+    ``conv_transpose``, ``channel_prelu``, ``channel_batch_norm``,
+    ``length_linear`` (a Linear over L) and ``channel_dropout``."""
+
+    linear: Callable
+    prelu: Callable
+    batch_norm: Callable
+    dropout: Callable
+    conv: Callable
+    conv_transpose: Callable
+    channel_prelu: Callable
+    channel_batch_norm: Callable
+    length_linear: Callable
+    channel_dropout: Callable
+
+
+def layers_of(module: nn.Module) -> Layers:
+    """The layer classes ``module`` builds from: the stacked ones bound to
+    its ``trials`` for a :class:`TrialModule`, else the single-trial ones.
+    Over features a stacked module takes the single ``Dropout``: its sampler
+    draws the (T, B, C) keep-mask per trial."""
     if not isinstance(module, TrialModule):
-        return Linear, PReLU, BatchNorm
-    return tuple(functools.partial(cls, module.trials)
-                 for cls in (TrialLinear, TrialPReLU, TrialBatchNorm))
+        return Layers(Linear, PReLU, BatchNorm, Dropout, Conv1d, ConvTranspose1d, PReLU,
+                      BatchNorm, Linear, Dropout)
+    t = functools.partial
+    n = module.trials
+    return Layers(t(TrialLinear, n), t(TrialPReLU, n), t(TrialBatchNorm, n), Dropout,
+                  t(TrialConv1d, n), t(TrialConvTranspose1d, n), t(TrialChannelPReLU, n),
+                  t(TrialChannelBatchNorm, n), t(TrialLengthLinear, n),
+                  t(TrialChannelDropout, n))
+
+
+def to_channels(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """(T, B, C, L) -> (B, T*C, L) for a :class:`TrialModule`; a single-trial
+    module's (B, C, L) passes as it is."""
+    if not isinstance(module, TrialModule):
+        return x
+    return x.transpose(0, 1).reshape(x.shape[1], -1, x.shape[-1])
+
+
+def from_channels(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_channels`: (B, T*C, L) -> (T, B, C, L) (a
+    view)."""
+    if not isinstance(module, TrialModule):
+        return x
+    b, tc, length = x.shape
+    return x.view(b, module.trials, tc // module.trials, length).transpose(0, 1)
 
 
 class TrialModule(nn.Module):
@@ -176,9 +316,9 @@ class TrialModule(nn.Module):
     ``class TrialX(TrialModule, X)`` is ``X(**kw)`` stacked ``trials``
     times."""
 
-    def __init__(self, trials: int, **kw):
+    def __init__(self, trials: int, *args, **kw):
         self.trials = int(trials)
-        super().__init__(**kw)
+        super().__init__(*args, **kw)
 
     def trial_state_dict(self, i: int, sd: Optional[Mapping[str, torch.Tensor]] = None
                          ) -> Dict[str, torch.Tensor]:
@@ -211,12 +351,11 @@ def reset_parameters(module: nn.Module, generator: torch.Generator, trial: int =
     of its single-trial counterpart in the same order."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
-            fan_in = m.in_features if isinstance(m, nn.Linear) else m.weight[0].numel()
-            bound = 1.0 / math.sqrt(fan_in)
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.uniform_(-bound, bound, generator=generator)
             m.bias.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, TrialLinear):
-            bound = 1.0 / math.sqrt(m.in_features)
+        elif isinstance(m, (TrialLinear, TrialConv1d, TrialConvTranspose1d)):
+            bound = 1.0 / math.sqrt(m.weight[trial][0].numel())
             for p in (m.weight, m.bias):
                 p[trial].copy_(torch.empty(p.shape[1:], device=p.device).uniform_(
                     -bound, bound, generator=generator))

@@ -12,7 +12,11 @@ block of that shape here: the decoders' 4->4 and 2->2 blocks at length 256.
 modules (conv weights (C, C, 11), ``fc1_w`` (2, 256), ``fc2_w`` (256, 2)).
 On a CUDA tensor it launches K3 on the current stream or raises; on a CPU
 tensor it computes :func:`fused_block_plain`, which mirrors the probe's
-``reference_block`` op by op.  K3 has no backward, so on either device it
+``reference_block`` op by op.  :func:`fused_block_trials` runs T stacked
+blocks (``models/blocks.py::TrialEncodingBlock``): x (B, T*C, L) and every
+parameter with the trial axis leading, one :func:`fused_block` per trial on
+the trial's contiguous copy of x and its weight slices, so a stacked block
+is T launches of K3.  K3 has no backward, so on either device it
 raises when autograd would need one (grad enabled and an input that
 requires grad).  ``launches`` counts the kernel launches.
 """
@@ -168,3 +172,15 @@ def fused_block(x, bn1_mean, bn1_var, w1, b1, a1, bn2_mean, bn2_var, w2, b2, a2,
         raise RuntimeError(f"fused_block launch failed: {lib.fused_block_error_string(rc).decode()}")
     launches += 1
     return out
+
+
+def fused_block_trials(x, *params):
+    """T stacked blocks: ``x`` (B, T*C, L) with trial t's channels at
+    [t*C, (t+1)*C), each of the 16 parameters with the trial axis leading;
+    one :func:`fused_block` (one K3 launch on the card) per trial."""
+    t = params[0].shape[0]
+    b, tc, length = x.shape
+    xs = x.reshape(b, t, tc // t, length)
+    out = torch.stack([fused_block(xs[:, i].contiguous(), *(p[i] for p in params))
+                       for i in range(t)], dim=1)
+    return out.view(b, tc, length)

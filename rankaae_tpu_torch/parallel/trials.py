@@ -12,8 +12,7 @@ the same host time for T trials as for one.
 Trial g of a run with base seed s draws from a generator seeded s + g, so it
 is the 1-trial run with seed s + g, and waves change no trial.  When there
 are more trials than ``max_resident``, they run in sequential waves
-(``trials.py:195-221``); the forms not stacked yet (the conv forms, the CNN
-discriminator) run one trial a wave.  One GPU: the ``trial_mesh`` and
+(``trials.py:195-221``), every form alike.  One GPU: the ``trial_mesh`` and
 ``trial_dp_mesh`` layouts wait for several (ROADMAP queue 1, item 10).
 
 With ``checkpoint_dir``, a wave trains in segments of ``checkpoint_every``
@@ -35,7 +34,6 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from rankaae_tpu_torch.models.registry import stacks_trials
 from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrainState, TrialData, per_trial
 from rankaae_tpu_torch.utils.checkpoint import load_train_state, save_train_state
 from rankaae_tpu_torch.utils.config import TrainConfig
@@ -105,7 +103,7 @@ def run_trials(
 ) -> TrialResults:
     """Train ``n_trials`` (default ``cfg.trials``) independent trials of
     ``cfg`` on ``device`` (default ``"cuda"``), at most ``max_resident``
-    at once (1 for the forms not stacked yet).
+    at once.
 
     ``lr_scales`` ((n_trials,)) multiplies each trial's learning rates;
     ``sweep`` maps keys of ``SWEEPABLE_HPARAMS`` (spec_noise, alpha_limit,
@@ -127,7 +125,7 @@ def run_trials(
 
     dev = resolve_device(device)
     data = TrialData(*(x.to(dev) for x in dataclasses.astuple(data)))
-    max_wave = max(1, int(max_resident)) if stacks_trials(cfg) else 1
+    max_wave = max(1, int(max_resident))
     n_waves = -(-n_trials // max_wave)
     waves = []
     for w in range(n_waves):

@@ -7,8 +7,8 @@
 Trains ``--config`` (default ``example/fix_config.yaml``; ``--ae-form`` and
 ``--cnn-discriminator`` override its form and discriminator) at full width
 on the 7,000-row synthetic dataset of ``example/make_data.py``, ``--trials``
-stacked trials at once (default 1; the FC form with the FC discriminator
-stacks them), runs ``--warmup`` epochs, then profiles one epoch with
+stacked trials at once (default 1; every form stacks them), runs
+``--warmup`` epochs, then profiles one epoch with
 ``torch.profiler`` (CPU + CUDA activities) and prints one JSON object: the
 epoch's wall time, the
 summed device time of its kernels (one stream, so the sum is the device's

@@ -25,14 +25,14 @@ differentiates the sum over trials (trials share no parameter, so each gets
 its own gradient), every learning rate, scheduler and tracker is per trial,
 and each trial draws from its own generator (``utils/sampler.py``): trial g
 of a T-trial run with seed s is the 1-trial run with seed s + g.  One
-launch of each kernel serves all T trials.  The forms not stacked yet (the
-conv forms, the CNN discriminator) train at T = 1 through the same code.
+launch of each kernel serves all T trials, for every form (K3, the conv
+decoders' fused eval-mode block, is one launch per trial).
 
-The faithful protocol is ported for every form but ``qved`` (FC,
-``normal``, ``compact``), both discriminators, gradient reversal on or off
+The faithful protocol is ported for every form (FC, ``normal``,
+``compact``, ``qved``), both discriminators, gradient reversal on or off
 (the non-GRL branch steps a D and a G optimizer) and the four optimizers.
-The ``fused``/``joint`` protocols, ``flat_optim``, bfloat16 activations and
-``qved`` raise ``NotImplementedError``.
+The ``fused``/``joint`` protocols, ``flat_optim`` and bfloat16 activations
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -170,7 +170,7 @@ class RankAAETrainer:
         self.n_val = n_val
         self.n_batch = -(-n_train // cfg.batch_size)
         self.trials = trials
-        encoder, decoder = build_autoencoder(cfg, trials)      # raises for qved
+        encoder, decoder = build_autoencoder(cfg, trials)
         self.models: Dict[str, nn.Module] = {
             "enc": encoder.to(self.device),
             "dec": decoder.to(self.device),
@@ -517,17 +517,31 @@ class RankAAETrainer:
         """The non-GRL branch (``trainer.py:374-423`` in the JAX package):
         the side-effect encode and decode, a D step on the discriminator
         optimizer, then a G step on the generator optimizer."""
-        enc, dec, dis = self.models["enc"], self.models["dec"], self.models["dis"]
+        enc, dec = self.models["enc"], self.models["dec"]
         with torch.no_grad():
             dec(enc(spec_in, sampler=sampler), sampler=sampler)   # trainer.py:113-114: stats only
+        return (self._discriminator_step(state, spec_in, z_real, sampler),
+                self._generator_step(state, spec_in, sampler))
+
+    def _discriminator_step(self, state: TrainState, spec_in, z_real, sampler):
+        """The D step: the prior's draws labelled real, the styles of a
+        stats-updating encode (detached) fake; returns its loss (T,)."""
+        enc, dis = self.models["enc"], self.models["dis"]
+        with torch.no_grad():
             styles = enc(spec_in, sampler=sampler)
         real_pred = dis(z_real, None, sampler=sampler)
         fake_pred = dis(styles, None, sampler=sampler)
         dis_loss = self._label_loss(real_pred, 1) + self._label_loss(fake_pred, 0)
         self._opt_step("discriminator", dis_loss, state)
+        return dis_loss
+
+    def _generator_step(self, state: TrainState, spec_in, sampler):
+        """The G step: the encoder's styles labelled real by the
+        discriminator; returns its loss (T,)."""
+        enc, dis = self.models["enc"], self.models["dis"]
         gen_loss = self._label_loss(dis(enc(spec_in, sampler=sampler), None, sampler=sampler), 1)
         self._opt_step("generator", gen_loss, state)
-        return dis_loss, gen_loss
+        return gen_loss
 
     # ------------------------------------------------------------------ #
     # validation (reference trainer.py:206-304)

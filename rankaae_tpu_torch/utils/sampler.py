@@ -2,8 +2,8 @@
 
 ``rankaae_tpu`` splits and folds ``jax.random`` keys; here every draw comes
 from a seeded ``torch.Generator``, in program order.  A :class:`Sampler` is
-one generator (one trial, for the modules that are not stacked on a trial
-axis); a :class:`TrialSampler` is one generator per trial, trial g of a run
+one generator (one trial, for a single-trial module); a
+:class:`TrialSampler` is one generator per trial, trial g of a run
 with base seed s seeded with s + g, and draws each trial's slice from that
 trial's generator.  So trial g of a T-trial run takes exactly the draws of a
 1-trial run with seed s + g, whatever T is.  Draws are named after what they
@@ -25,15 +25,12 @@ import torch
 
 
 class Sampler:
-    """Named draws from one seeded generator on ``device`` (or from the
-    given ``generator``)."""
+    """Named draws from one generator on ``device``, seeded ``seed``."""
 
-    def __init__(self, seed: int, device, generator: torch.Generator = None):
+    def __init__(self, seed: int, device):
         self.device = torch.device(device)
-        if generator is None:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(int(seed))
-        self.generator = generator
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
 
     def normal(self, name: str, shape: Sequence[int]) -> torch.Tensor:
         """Standard-normal float32 draw; ``name`` identifies the draw site
@@ -77,11 +74,6 @@ class TrialSampler:
         for g, st in zip(self.generators, states):
             g.set_state(torch.from_numpy(np.asarray(st, np.uint8).copy()))
 
-    def trial(self, i: int) -> Sampler:
-        """A plain :class:`Sampler` over generator ``i``, for the modules
-        that are not stacked (they run at T = 1)."""
-        return Sampler(self.seed + i, self.device, generator=self.generators[i])
-
     def _stack(self, draw, shape: Sequence[int]) -> torch.Tensor:
         shape = tuple(shape)
         if shape[0] != self.trials:
@@ -109,8 +101,7 @@ class FixedDraws(TrialSampler):
     """A sampler that hands out given arrays for the named draws: each
     ``draws[name]`` is an array with the trial axis leading, or a list of
     them handed out in order (a draw site that a run visits several times,
-    and the ``permutation`` of each epoch).  ``trial(i)`` hands out trial
-    ``i`` of the same arrays, for the modules that are not stacked."""
+    and the ``permutation`` of each epoch)."""
 
     def __init__(self, draws, trials: int = 1, device="cpu"):
         super().__init__(0, trials, device)
@@ -132,12 +123,3 @@ class FixedDraws(TrialSampler):
         x = self._pop("permutation")
         assert tuple(x.shape) == (self.trials, n), tuple(x.shape)
         return x.long()
-
-    def trial(self, i: int):
-        outer = self
-
-        class _Trial:
-            def normal(self, name, shape):
-                return outer.normal(name, (outer.trials, *shape))[i]
-
-        return _Trial()

@@ -4,17 +4,24 @@
 The method of ``rankaae_tpu_torch/tools/batch_spread.py``: the test's batch
 (its config, data, JAX draws and second moments of 1e-8) runs from the
 JAX package's initial weights, then again from those weights each
-multiplied by (1 + 1e-7 N(0, 1)), on the JAX package and on the port.  The
-largest change of the MI loss and of any leaf over the perturbed runs is
-the batch's spread on each stack.  The test prints both spreads and the
-difference between the two stacks run in sequence from the same weights.
+multiplied by (1 + 1e-7 N(0, 1)) for :data:`SAMPLES` seeds, on the JAX
+package and on the port.  The largest change of the MI loss and of any leaf
+over the perturbed runs is the batch's spread on each stack.  The test
+prints both spreads and the difference between the two stacks run in
+sequence from the same weights.
 
 It holds what the parity test's design rests on: the whole-batch MI loss of
 this batch moves by more than half the parity tolerance (1e-4) under a
 1e-7 perturbation, on each stack, and the two stacks differ by no more than
 twice that spread.  So the difference is rounding that the MI step
-amplifies, and the parity test compares the MI and smoothness steps each
-from identical inputs.
+amplifies, and the parity test compares every step from identical inputs.
+
+The MI loss does not move smoothly: it takes one of two values 1.6e-4
+apart, and a perturbation either flips it or moves it by a few 1e-6.  How
+many perturbations flip it depends on the CPU that runs the suite (the
+order of its float32 sums): on one x86 host 1 of 16 seeds flipped the JAX
+package's loss and none of the first 3 did.  So the spread is taken over 16
+seeds, enough that each stack shows the flip.
 """
 import json
 
@@ -28,24 +35,14 @@ import torch
 from rankaae_tpu.train.trainer import RankAAETrainer as JaxTrainer
 from rankaae_tpu.utils.config import TrainConfig as JaxTrainConfig
 
-from rankaae_tpu_torch.tools.batch_spread import PERTURBATION
 from rankaae_tpu_torch.train.trainer import RankAAETrainer
 from rankaae_tpu_torch.utils.config import TrainConfig
 from rankaae_tpu_torch.utils.sampler import FixedDraws
 from tests.test_torch_conv_train_normal import B, CFG, N_VAL
 from tests.torch_parity import (BATCH_ATOL, NU0, _flat, batch_draws, jax_init,
-                                load_jax_weights, make_data)
+                                load_jax_weights, make_data, perturbed)
 
-SAMPLES = 3
-
-
-def _perturbed(params, seed):
-    if seed is None:
-        return params
-    rng = np.random.default_rng(seed)
-    return jax.tree_util.tree_map(
-        lambda x: (np.asarray(x) * (1 + PERTURBATION * rng.standard_normal(np.shape(x))))
-        .astype(np.float32), params)
+SAMPLES = 16
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +58,7 @@ def runs():
     step = jax.jit(jtr._train_batch)
 
     def jax_batch(seed):
-        new, losses = step(jstate._replace(params=_perturbed(jstate.params, seed)),
+        new, losses = step(jstate._replace(params=perturbed(jstate.params, seed)),
                            jnp.asarray(spec), jnp.asarray(aux), jnp.float32(0.3),
                            jnp.int32(0), rng)
         return float(losses["mi"]), _flat({"p": new.params, "s": new.batch_stats})
@@ -69,7 +66,7 @@ def runs():
     def port_batch(seed):
         ttr = RankAAETrainer(TrainConfig(**CFG), n_train=B, n_val=N_VAL, device="cpu")
         tstate = ttr.init_state(0)
-        load_jax_weights(ttr, jstate._replace(params=_perturbed(jstate.params, seed)))
+        load_jax_weights(ttr, jstate._replace(params=perturbed(jstate.params, seed)))
         for o in tstate.opt.values():
             for v in o.nu:
                 v.fill_(NU0)

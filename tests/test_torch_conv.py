@@ -35,6 +35,7 @@ from rankaae_tpu_torch.models.blocks import DecodingBlock, EncodingBlock
 from rankaae_tpu_torch.models.primitives import Conv1d, ConvTranspose1d, reset_parameters
 from rankaae_tpu_torch.ops import fused_block_cuda as fb
 from rankaae_tpu_torch.utils.weights import to_jax
+from tests import torch_parity  # noqa: F401  (one torch thread a process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5

@@ -4,8 +4,11 @@
   faithful ``_train_batch`` (the CNN discriminator's two sequential
   train-mode forwards, real then fake, scored with NLL) and one
   ``_validate`` against the JAX trainer's, as ``tests/torch_parity.py``
-  sets out (atol 1e-4 on the losses and every leaf after the batch, 1e-5
-  on ``_validate``).
+  sets out (``compare_batch_by_steps``: the whole batch, and each step
+  from identical inputs at atol 1e-4; 1e-5 on ``_validate``).  As a whole
+  the batch parts by 1.1e-4 on the smoothness loss and 1.2e-3 on a leaf,
+  inside what a 1e-7 weight perturbation moves them (1.2e-4 and 2.0e-3,
+  16 seeds, one torch thread), so those are held to twice their spread.
 * The facade on the CPU: ``Trainer.from_data(...).train()`` of the compact
   form writes ``final.mpk``, ``best_tracked.mpk`` and ``best_recon.mpk``
   with their extras; the JAX package's ``load_model_bundle`` reads
@@ -32,7 +35,7 @@ from rankaae_tpu_torch.train.trainer import RankAAETrainer
 from rankaae_tpu_torch.utils.checkpoint import load_model_bundle
 from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
 from tests.test_torch_trainer import CFG as FC_CFG
-from tests.torch_parity import compare_batch, compare_validate, jax_init, make_data
+from tests.torch_parity import compare_batch_by_steps, compare_validate, jax_init, make_data
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, N_VAL = 64, 40
@@ -48,7 +51,7 @@ def pair():
 
 def test_compact_cnn_grl_batch_matches_jax(pair):
     spec, aux = make_data(3, B)
-    n_checked, moved, tlosses, _ = compare_batch(*pair, spec, aux)
+    moved, tlosses, n_checked = compare_batch_by_steps(*pair, spec, aux)
     assert n_checked > 100                  # conv trees and the CNN's BN statistics
     assert np.median(moved) > 1e-3
     assert tlosses["gen"].item() == 0.0     # GRL: no generator step

@@ -1,7 +1,8 @@
 """One faithful batch of the normal conv form (FC discriminator, gradient
-reversal) with the port against the JAX package, each step compared from
+reversal) with the port against the JAX package, whole and each step from
 identical inputs (``tests/torch_parity.py::compare_batch_by_steps``; atol
-1e-4 on the losses and on every leaf).  A file of its own: the JAX side's
+1e-4 on the losses and on every leaf, or twice the whole batch's 1e-7
+perturbation spread where that is larger).  A file of its own: the JAX side's
 initialisation and compilation of the deep normal form take most of half
 a minute on a CPU, and ``--dist loadfile`` gives each file its own worker.
 
@@ -19,9 +20,11 @@ relative perturbation of this test's weights moving the batch's MI loss by
 2.0e-4.  The two stacks run in sequence from the same weights differ by
 1.6e-4 (MI loss) and 1.9e-4 (leaves): inside that spread, so the difference
 is float32 rounding that the steps before the MI step leave and the MI step
-amplifies, not a fault.  So the MI and smoothness steps are each compared
-alone, from the JAX package's weights, running statistics and moments as
-they stand before the step; from identical inputs they agree within 4e-7.
+amplifies, not a fault.  So the whole batch is held to twice that spread
+(with one torch thread it parts by 9.8e-6 on the MI loss and 1.0e-4 on a
+leaf), and every step is also compared alone, from the JAX package's
+weights, running statistics and moments as they stand before the step;
+from identical inputs the MI and smoothness steps agree within 4e-7.
 """
 import numpy as np
 import pytest
@@ -47,6 +50,6 @@ def pair():
 
 def test_normal_fc_grl_batch_matches_jax(pair):
     spec, aux = make_data(5, B)
-    moved = compare_batch_by_steps(*pair, spec, aux)
+    moved, _, _ = compare_batch_by_steps(*pair, spec, aux)
     # a tenth of the weights moved by more than ten times the tolerance
     assert np.quantile(moved, 0.9) > 1e-3

@@ -26,6 +26,7 @@ from rankaae_tpu.ops.kendall import kendall_constraint as jax_kendall
 
 from rankaae_tpu_torch.ops import kendall as tk
 from rankaae_tpu_torch.ops import kendall_cuda as kc
+from tests import torch_parity  # noqa: F401  (one torch thread a process)
 
 RTOL, ATOL = 1e-4, 1e-6
 

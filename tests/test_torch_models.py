@@ -22,6 +22,7 @@ from rankaae_tpu_torch.models.encoders import FCEncoder
 from rankaae_tpu_torch.models.grl import grad_reverse
 from rankaae_tpu_torch.models.primitives import reset_parameters
 from rankaae_tpu_torch.utils.weights import from_jax, to_jax
+from tests import torch_parity  # noqa: F401  (one torch thread a process)
 
 ATOL = 1e-5
 NSTYLE, DIM, LAYERS, B = 6, 256, 4, 64

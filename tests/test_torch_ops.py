@@ -31,6 +31,7 @@ from rankaae_tpu_torch.ops import stats as ts
 from rankaae_tpu_torch.optim.optimizers import make_optimizer
 from rankaae_tpu_torch.optim.plateau import plateau_init, plateau_update
 from rankaae_tpu_torch.utils.config import TrainConfig
+from tests import torch_parity  # noqa: F401  (one torch thread a process)
 
 ATOL = 1e-6
 

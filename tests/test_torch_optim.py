@@ -16,6 +16,7 @@ import torch
 from rankaae_tpu.optim.optimizers import make_optimizer as jax_make_optimizer
 
 from rankaae_tpu_torch.optim.optimizers import make_optimizer
+from tests import torch_parity  # noqa: F401  (one torch thread a process)
 
 ATOL = 1e-6
 STEPS = 12

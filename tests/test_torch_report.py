@@ -43,6 +43,7 @@ from rankaae_tpu_torch.report.generate_report import generate, sorting_algorithm
 from rankaae_tpu_torch.utils.checkpoint import load_model_bundle, save_model_bundle
 from rankaae_tpu_torch.utils.config import Parameters
 from tests.test_failure_masking import _fake_result
+from tests import torch_parity  # noqa: F401  (one torch thread a process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-4

@@ -47,6 +47,7 @@ from rankaae_tpu_torch.serve import BatchedInference, device_benchmark, main as 
 from rankaae_tpu_torch.utils import checkpoint
 from rankaae_tpu_torch.utils.config import TrainConfig
 from rankaae_tpu_torch.utils.weights import from_jax, to_jax
+from tests import torch_parity  # noqa: F401  (one torch thread a process)
 
 ATOL = 1e-4
 FORMS = {"normal": True, "compact": False}     # ae_form -> use_cnn_discriminator

@@ -7,9 +7,12 @@ sweep over the trials) in a work dir of their own.  The relative paths match
 file for file (the checkpoint names by pattern: they hold each run's best
 loss), the ``losses.csv`` headers and row counts match, the manifests have
 the same keys, and the JAX package's ``load_model_bundle`` reads every
-bundle the port wrote.  A compact-form config of 2 trials runs as two waves
-of one trial and writes the same tree.
+bundle the port wrote.  A compact-form config of 2 trials runs as one wave,
+and as two waves of one trial when ``run_trials``' ``max_resident`` is 1,
+and writes the same tree either way; a normal-form config of 3 trials runs
+as one wave and writes every job's files.
 """
+import functools
 import json
 import os
 import re
@@ -29,6 +32,7 @@ from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes_csv
 from rankaae_tpu_torch.models.inference import InferenceModel
 from rankaae_tpu_torch.parallel import trials as port_trials
 from rankaae_tpu_torch.utils.checkpoint import load_model_bundle
+from tests import torch_parity  # noqa: F401  (one torch thread a process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKPOINT = re.compile(r"epoch_\d{6}_loss_[-+0-9.e]+\.mpk(\.json)?$")
@@ -115,7 +119,10 @@ def test_artifact_tree_matches_jax_cli(jax_run, tmp_path):
     assert "START" in log and "END" in log and "2 trails" in log
 
 
-def test_conv_form_runs_as_waves_of_one(jax_run, tmp_path, monkeypatch):
+def _compact_run(jax_run, path, monkeypatch, max_resident=None):
+    """``train_sc`` of the compact form's 2 trials (at most ``max_resident``
+    a wave, default ``run_trials``'); checks the tree against the JAX
+    CLI's and every bundle, and returns the trials of each wave."""
     waves = []
     real = port_trials._run_wave
 
@@ -124,16 +131,56 @@ def test_conv_form_runs_as_waves_of_one(jax_run, tmp_path, monkeypatch):
         return real(cfg, data, n_trials, *args, **kw)
 
     monkeypatch.setattr(port_trials, "_run_wave", run_wave)
-    work = _work_dir(tmp_path / "compact", ae_form="compact")
+    if max_resident is not None:
+        monkeypatch.setattr(train_sc, "run_trials",
+                            functools.partial(port_trials.run_trials, max_resident=max_resident))
+    work = _work_dir(path, ae_form="compact")
     train_sc.main(["-c", "cfg.yaml", "-w", work, "--device", "cpu"])
-    assert waves == [1, 1]
     # the tree of the JAX run, less the sweep
     assert _tree(work) == _tree(jax_run)
-    for path in _bundles(work):
-        _, _, cfg, extra = load_model_bundle(path)
+    for bundle in _bundles(work):
+        _, _, cfg, extra = load_model_bundle(bundle)
         assert cfg.ae_form == "compact" and "lr_scale" not in extra
     x = np.random.default_rng(0).normal(1, 0.1, size=(8, 256)).astype(np.float32)
     for job in ("job_1", "job_2"):
         z = InferenceModel.from_bundle(os.path.join(work, "training", job, "final.mpk"),
                                        device="cpu").encode(x)
         assert z.shape == (8, 6) and np.all(np.isfinite(z))
+    return waves
+
+
+def test_conv_form_runs_as_waves_of_one(jax_run, tmp_path, monkeypatch):
+    # a stacked form still splits its trials into waves of ``max_resident``
+    assert _compact_run(jax_run, tmp_path / "compact", monkeypatch, max_resident=1) == [1, 1]
+
+
+def test_conv_form_runs_as_one_wave(jax_run, tmp_path, monkeypatch):
+    assert _compact_run(jax_run, tmp_path / "compact", monkeypatch) == [2]
+
+
+def test_normal_form_trials_run_as_one_wave(tmp_path, monkeypatch):
+    waves = []
+    real = port_trials._run_wave
+
+    def run_wave(cfg, data, n_trials, *args, **kw):
+        waves.append(n_trials)
+        return real(cfg, data, n_trials, *args, **kw)
+
+    monkeypatch.setattr(port_trials, "_run_wave", run_wave)
+    work = _work_dir(tmp_path / "normal", ae_form="normal", trials=3)
+    train_sc.main(["-c", "cfg.yaml", "-w", work, "--device", "cpu"])
+    assert waves == [3]
+    tree = _tree(work)
+    assert len(tree) == 1 + 3 * 10 and "main_process_message.txt" in tree
+    x = np.random.default_rng(0).normal(1, 0.1, size=(8, 256)).astype(np.float32)
+    styles = []
+    for job in ("job_1", "job_2", "job_3"):
+        with open(os.path.join(work, "training", job, "losses.csv")) as f:
+            assert len(f.read().splitlines()) == 2      # the header and epoch 0 (every 10th)
+        for name in ("final", "best_tracked", "best_recon"):
+            _, _, cfg, _ = load_model_bundle(os.path.join(work, "training", job, f"{name}.mpk"))
+            assert cfg.ae_form == "normal" and cfg.trials == 3
+        styles.append(InferenceModel.from_bundle(
+            os.path.join(work, "training", job, "final.mpk"), device="cpu").encode(x))
+    assert all(np.all(np.isfinite(z)) for z in styles)
+    assert len({z.tobytes() for z in styles}) == 3           # three different trials

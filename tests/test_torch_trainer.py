@@ -3,10 +3,15 @@
 * One faithful ``_train_batch`` of the FC form against
   ``jax.jit(RankAAETrainer._train_batch)`` from the same weights and draws,
   and one ``_validate`` (``tests/torch_parity.py`` says how and with what
-  tolerances).  From zero second moments instead of 1e-8 this batch put
-  3631 of the 16384 first-layer weights off by up to 2.2e-2; from 1e-8,
-  every leaf is within 1e-5 while the median autoencoder weight still moves
-  by more than 1e-3.
+  tolerances): the whole batch, and each step from identical inputs.  The
+  whole batch is ill-conditioned: a 1e-7 weight perturbation moves its
+  mutual-info loss by up to 9.6e-4 and a leaf by up to 1.9e-2 on the port
+  (16 seeds, one torch thread), and the two stacks part by 2.8e-4 and
+  3.4e-3, so each loss and leaf is held to twice its own spread where
+  that exceeds 1e-4.  From zero second moments instead of 1e-8 this batch
+  put 3631 of the 16384 first-layer weights off by up to 2.2e-2; from
+  1e-8, every step from identical inputs is within 1e-4 while the median
+  autoencoder weight still moves by more than 1e-3.
 * A CPU smoke of the ``Trainer.from_data(...).train()`` facade.
 * The package rules: nothing of ``jax``, ``rankaae_tpu`` or ``msgpack`` is
   imported (the runner and ``train_sc`` included), the entry points
@@ -38,7 +43,7 @@ from rankaae_tpu_torch.train.trainer import RankAAETrainer
 from rankaae_tpu_torch.utils.checkpoint import save_model_bundle
 from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
 from rankaae_tpu_torch.utils.weights import to_jax
-from tests.torch_parity import compare_batch, compare_validate, make_data
+from tests.torch_parity import compare_batch_by_steps, compare_validate, make_data
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, N_VAL, NSTYLE = 256, 120, 6
@@ -67,7 +72,7 @@ def pair():
 
 def test_one_faithful_batch_matches_jax(pair):
     spec, aux = make_data(1, B)
-    n_checked, moved, _, _ = compare_batch(*pair, spec, aux)
+    moved, _, n_checked = compare_batch_by_steps(*pair, spec, aux)
     assert n_checked == 34
     # the step moved the autoencoder far beyond the tolerance
     assert np.median(moved) > 1e-3
@@ -127,8 +132,7 @@ def test_entry_points_default_to_cuda(synthetic_csv, monkeypatch, tmp_path):
 
 def test_unported_paths_raise():
     for kw, item in (({"protocol": "joint"}, "item 8"), ({"protocol": "fused"}, "item 8"),
-                     ({"flat_optim": True}, "item 7"), ({"activation_dtype": "bfloat16"}, "item 9"),
-                     ({"ae_form": "qved"}, "item 6")):
+                     ({"flat_optim": True}, "item 7"), ({"activation_dtype": "bfloat16"}, "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             RankAAETrainer(TrainConfig(**{**CFG, **kw}), n_train=B, n_val=N_VAL, device="cpu")
 
