@@ -63,9 +63,9 @@ Phases (any failure exits non-zero and prints no result):
    rates and discriminator noise as well, so that every per-trial draw of
    the main path is held; (c)
    steady-epoch spectra/s per GPU (T * n_train / epoch seconds) of
-   ``example/fix_config.yaml`` at T 1, 8 and 32, and the launches, device
-   time and idle share of a profiled epoch at T 1 and 32
-   (``tools/profile_epoch.py``);
+   ``example/fix_config.yaml`` at T 1, 8 and 32 (the launches, device
+   time and idle share of a profiled epoch at T 1 and 32 are 11e's
+   faithful rows);
 9. the rest of the user's pipeline — (a) resume: ``train_sc`` of
    ``example/fix_config.yaml`` (its 8 trials, full width, ``alpha_flat_step``
    ~ 0 so that the GRL ramp does not depend on ``max_epoch``) uncut for 4
@@ -90,8 +90,9 @@ Phases (any failure exits non-zero and prints no result):
    every bundle reloaded, K1 and K2 launched exactly as often as phase 3's
    one-trial run (one launch carries the 8 trials), K3 once a trial and
    fused block in each validation's two eval-mode decodes (8 x 3 x 2 x 4 =
-   192); then the normal form's steady-epoch spectra/s per GPU and a
-   profiled epoch (launches, device time, idle share) at T 1 and 8; (b)
+   192); then the normal form's steady-epoch spectra/s per GPU at T 1 and
+   8, and a profiled epoch (launches, device time, idle share) at T 1
+   (at T 8 it is 11e's faithful row); (b)
    trial independence of a stacked conv run: trial 2 of a 4-trial
    normal-form run (the config's dropout and noise, ``INDEPENDENCE_LR``, 2
    epochs) against the 1-trial run of seed + 2 under cuDNN's deterministic
@@ -104,7 +105,31 @@ Phases (any failure exits non-zero and prints no result):
    q-vectors), card vs CPU, each at phase 4's tolerances, or twice the
    larger of that batch's 1e-7 weight and input perturbation spreads on
    the CPU (measured in the run) where that is larger; a qved bundle
-   served by the CLI card vs CPU (atol 1e-4).
+   served by the CLI card vs CPU (atol 1e-4);
+11. the trainer's remaining options — (a) ``train_sc`` of
+   ``example/fix_config.yaml`` (full width, batch 1024, its 8 trials in one
+   wave, EPOCHS epochs) with ``protocol: fused`` and with ``protocol:
+   joint``, each for the FC and the normal form: the tree, every bundle
+   reloaded, K1 and K2 launched as phase 3's one-trial run and K3 as 10a's
+   (192) for the normal form; (b) one batch card vs CPU from the same
+   weights and draws: fused FC (phase 4's depth 3), fused compact with the
+   CNN discriminator without GRL, joint FC (depth 3) and joint normal
+   form; (c) ``flat_optim``: the FC and the normal form (8 trials,
+   EPOCHS epochs; the normal form under cuDNN's deterministic algorithms)
+   with and without the knob, every ``losses.csv`` and bundle
+   bit-identical (where two runs without the knob are not bit-identical
+   either, their difference is printed and bounds the pair), and an
+   8-trial checkpoint written without the knob refused by a ``--resume``
+   with it; (d) bfloat16 activations: the FC and the normal form (8
+   trials, EPOCHS epochs): finite losses, the launches as (a), the tree,
+   every bundle's leaves float32, job_1's final bundle served by the CLI
+   card vs CPU (float32 inference), and one bfloat16 FC batch card vs CPU
+   (at ``lr_base`` 1e-4);
+   (e) each of faithful, faithful + ``flat_optim``, fused, joint and
+   bfloat16 at FC T 1, FC T 32 and normal T 8, each through one
+   ``tools/profile_epoch.py`` call: the median spectra/s per GPU of three
+   steady epochs and a profiled epoch's launches, device time (summed and
+   busy) and idle share.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
@@ -127,13 +152,19 @@ statistics within 1e-4 relative to max(1, |CPU|) and the gain within 1e-4;
 9c every score of the report within 1e-3 and ``Reconstruct Err`` (rounded
 to 4 decimals) within 1e-4 and one rounding unit, the ranks identical unless
 two trials' scores lie within 1e-3 (they are printed then), and the best
-model's styles and reconstructions within 1e-4, as phase 6.
+model's styles and reconstructions within 1e-4, as phase 6; 11b phase
+4's tolerances, or twice the spread 4 perturbations of the weights by 1e-7
+relative make on the CPU (measured in the run) where a difference exceeds
+them; 11c bit-identical; 11d serving 1e-4 as phase 6, and the bfloat16
+batch twice the CPU spread of 4 perturbations of the weights by 2^-9
+relative (half a bfloat16 unit), never under phase 4's tolerances.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -568,15 +599,13 @@ def time_kernels(torch, np, kc, b, k):
     return out
 
 
-def batch_parity(torch, np, cfg, loss_atol, leaf_atol, leaf_rtol=None, data=None):
-    """One faithful batch of ``cfg`` (dropout and discriminator noise at 0),
-    card against CPU, from the same weights (carried through the weight
-    bridge) and the same draws, at the config's batch size, on ``data``
-    ((spec, aux), default the synthetic spectra of seed 11).  Asserts each
-    loss within ``loss_atol[name]`` and each parameter/statistic leaf after
-    the batch within ``leaf_atol["params"|"stats"]`` (max |card - CPU|) and,
-    if given, ``leaf_rtol`` (|card - CPU| / |CPU|, Frobenius).  Returns the
-    largest loss difference and the worst leaf differences."""
+def batch_pair(torch, np, cfg, data=None):
+    """One batch of ``cfg`` (dropout and discriminator noise at 0, any
+    protocol), on the CPU and on the card, from the same weights (carried
+    through the weight bridge) and the same draws, at the config's batch
+    size, on ``data`` ((spec, aux), default the synthetic spectra of seed
+    11).  Returns ((losses, leaves) on the CPU, the same on the card, the
+    names of the parameter leaves)."""
     from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes
     from rankaae_tpu_torch.train.trainer import RankAAETrainer
     from rankaae_tpu_torch.utils.sampler import FixedDraws
@@ -610,20 +639,39 @@ def batch_parity(torch, np, cfg, loss_atol, leaf_atol, leaf_rtol=None, data=None
         results[dev] = ({k: v.item() for k, v in losses.items()},
                         {f"{k}.{n}": v.detach().cpu() for k, m in tr.models.items()
                          for n, v in m.state_dict().items() if v.is_floating_point()})
-    (l_cpu, w_cpu), (l_gpu, w_gpu) = results["cpu"], results["cuda"]
-    for name in l_cpu:
-        assert abs(l_cpu[name] - l_gpu[name]) <= loss_atol[name], \
-            (name, l_cpu[name], l_gpu[name], loss_atol[name])
-    worst = {"params": 0.0, "stats": 0.0, "rel": 0.0}
+    return results["cpu"], results["cuda"], params
+
+
+def pair_errors(pair):
+    """|card - CPU| of each loss, and of each leaf (kind, max, relative
+    Frobenius norm), of a :func:`batch_pair`."""
+    (l_cpu, w_cpu), (l_gpu, w_gpu), params = pair
+    leaves = {}
     for n in w_cpu:
-        kind = "params" if n in params else "stats"
         d = (w_cpu[n] - w_gpu[n]).abs()
-        rel = (d.norm() / w_cpu[n].norm()).item()
-        assert d.max().item() <= leaf_atol[kind], (n, d.max().item(), leaf_atol[kind])
+        leaves[n] = ("params" if n in params else "stats", d.max().item(),
+                     (d.norm() / w_cpu[n].norm()).item())
+    return {n: abs(l_cpu[n] - l_gpu[n]) for n in l_cpu}, leaves
+
+
+def batch_parity(torch, np, cfg, loss_atol, leaf_atol, leaf_rtol=None, data=None):
+    """One batch of ``cfg`` card against CPU (:func:`batch_pair`).  Asserts
+    each loss within ``loss_atol[name]`` and each parameter/statistic leaf
+    after the batch within ``leaf_atol["params"|"stats"]`` (max |card -
+    CPU|) and, if given, ``leaf_rtol`` (|card - CPU| / |CPU|, Frobenius).
+    Returns the largest loss difference and the worst leaf differences."""
+    pair = batch_pair(torch, np, cfg, data)
+    (l_cpu, _), (l_gpu, _), _ = pair
+    loss, leaves = pair_errors(pair)
+    for name in loss:
+        assert loss[name] <= loss_atol[name], (name, l_cpu[name], l_gpu[name], loss_atol[name])
+    worst = {"params": 0.0, "stats": 0.0, "rel": 0.0}
+    for n, (kind, d, rel) in leaves.items():
+        assert d <= leaf_atol[kind], (n, d, leaf_atol[kind])
         assert leaf_rtol is None or rel <= leaf_rtol, (n, rel)
-        worst[kind] = max(worst[kind], d.max().item())
+        worst[kind] = max(worst[kind], d)
         worst["rel"] = max(worst["rel"], rel)
-    return max(abs(l_cpu[n] - l_gpu[n]) for n in l_cpu), worst, l_cpu, l_gpu
+    return max(loss.values()), worst, l_cpu, l_gpu
 
 
 def train_conv(torch, np, kc, fb, cfg_path, tmp, card, n_batch):
@@ -860,16 +908,16 @@ def trial_independence(torch, np, cfg, splits):
     return err, compare(runs[2], runs[1])
 
 
-def trial_throughput(torch, cfg, splits, card, trial_counts=THROUGHPUT_TRIALS, label="8c"):
+def trial_throughput(torch, cfg, splits, card, trial_counts=THROUGHPUT_TRIALS, label="8c",
+                     profiled=()):
     """Phase 8c (and 10a): steady-epoch spectra/s per GPU of ``cfg`` at each
     T of ``trial_counts`` (3 epochs, the last two timed, each ending in a
-    device sync), then a profiled epoch of its form at the smallest and
-    largest T.  Returns the spectra/s and the profiles by T."""
+    device sync), then a profiled epoch of its form at each T of
+    ``profiled``."""
     from rankaae_tpu_torch.tools.profile_epoch import profile_epoch
     from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
 
     data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
-    out, profiles = {}, {}
     for trials in trial_counts:
         tr = RankAAETrainer(cfg, n_train=len(splits[0]), n_val=len(splits[2]), trials=trials,
                             device="cuda")
@@ -881,22 +929,19 @@ def trial_throughput(torch, cfg, splits, card, trial_counts=THROUGHPUT_TRIALS, l
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
         assert torch.isfinite(log["metrics"]).all(), trials
-        steady = seconds[1:]
-        out[trials] = [trials * tr.n_train / sec for sec in steady]
+        rates = [trials * tr.n_train / sec for sec in seconds[1:]]
         print(f"{label} {cfg.ae_form} T={trials}: epoch seconds "
               f"{[round(x, 4) for x in seconds]}, steady spectra/s per GPU "
-              f"{[round(x, 1) for x in out[trials]]} "
-              f"({[round(x / trials, 1) for x in out[trials]]} a trial) [{card}]")
+              f"{[round(x, 1) for x in rates]} "
+              f"({[round(x / trials, 1) for x in rates]} a trial) [{card}]")
         del tr, state, log
         torch.cuda.empty_cache()
-    for trials in (trial_counts[0], trial_counts[-1]):
-        prof = profile_epoch(ae_form=cfg.ae_form, trials=trials)
+    for trials in profiled:
+        prof = profile_epoch(ae_form=cfg.ae_form, trials=trials, splits=splits)
         top = prof.pop("top_kernels")
-        profiles[trials] = prof
         print(f"{label} profile {cfg.ae_form} T={trials}: " + json.dumps(prof))
         print(f"{label} profile {cfg.ae_form} T={trials}, top kernels: " + json.dumps(
             [(k["name"][:70], k["launches"], round(k["ms"], 3)) for k in top[:8]]))
-    return out, profiles
 
 
 # phase 9: resume (9a), recalibration (9b) and the report (9c)
@@ -1336,6 +1381,302 @@ def qved_trials(torch, np, kc, fb, root, cfg_path, card, expect, n_rows):
     return launches
 
 
+# phase 11: the trainer's remaining options
+OPTION_PROTOCOLS = ("fused", "joint")
+OPTION_FORMS = ("FC", "normal")
+OPTION_SPREAD_SAMPLES = 4
+# 11d: a bfloat16 batch card vs CPU is held to twice its CPU spread under a
+# perturbation of the weights by half a bfloat16 unit (2^-9 relative), and
+# never under phase 4's tolerances: bfloat16 rounds each activation to 8
+# significant bits, and a value that rounds the other way on the card (its
+# sums are taken in another order) moves the batch as such a perturbation does
+BF16_PERTURBATION = 2.0 ** -9
+# at the config's learning rates that spread reaches the size of the update
+# (a leaf's relative spread 0.51, measured by this phase on the CPU of the
+# machine of an NVIDIA H100 80GB HBM3 at 700 W): held at lr_base 1e-4, as
+# tests/test_torch_bf16.py holds the bfloat16 batch against the JAX package
+BF16_LR = 1e-4
+# 11e: each option beside faithful, at each (form, T)
+OPTIONS = (("faithful", {}), ("faithful + flat_optim", {"flat_optim": True}),
+           ("fused", {"protocol": "fused"}), ("joint", {"protocol": "joint"}),
+           ("bfloat16", {"activation_dtype": "bfloat16"}))
+OPTION_SHAPES = (("FC", 1), ("FC", 32), ("normal", 8))
+#: steady epochs timed for each option (after one warm-up epoch)
+OPTION_STEADY = 3
+LAUNCH_KEYS = ("kendall_pair_sums", "kendall_grad_rows", "fused_block")
+
+
+def add_launches(total, launches):
+    for k in LAUNCH_KEYS:
+        total[k] = total.get(k, 0) + launches.get(k, 0)
+
+
+def expected_launches(expect, trials, form):
+    """A ``train_sc`` run's launches: K1 and K2 as phase 3's one-trial run
+    (``expect``), K3 once a trial and fused block in each validation's two
+    eval-mode decodes of the normal form."""
+    return {**expect, "fused_block": trials * EPOCHS * 2 * NORMAL_FUSED_BLOCKS
+            if form == "normal" else 0}
+
+
+def option_trials(torch, np, kc, fb, root, csv, cfg_path, card, expect):
+    """Phase 11a: ``train_sc`` of the fused and the joint protocol, each of
+    the FC and the normal form, the config's trials in one wave at full
+    width, EPOCHS epochs: the tree and every bundle, K1 and K2 launched as
+    phase 3's one-trial run, K3 as 10a's.  Returns the launches."""
+    from rankaae_tpu_torch.utils.config import Parameters
+
+    trials = Parameters.from_yaml(cfg_path).get("trials")
+    total = {}
+    for protocol in OPTION_PROTOCOLS:
+        for form in OPTION_FORMS:
+            work = work_dir(root, f"{protocol}_{form}", csv, cfg_path, ae_form=form,
+                            protocol=protocol, max_epoch=EPOCHS)
+            sec, launches = run_train_sc(torch, kc, fb, work, "cuda")
+            assert_tickets_clear(kc, f"after the {protocol} {form} train_sc")
+            want = expected_launches(expect, trials, form)
+            assert launches == want, (protocol, form, launches, want)
+            check_tree(np, work, trials, form, 256)
+            print(f"11a train_sc: protocol {protocol}, {form} form, {trials} trials in one "
+                  f"wave, {EPOCHS} epochs, {sec:.2f} s wall; tree and bundles checked; "
+                  f"launches {launches} (expected {want}) [{card}]")
+            add_launches(total, launches)
+    return total
+
+
+def held_batch(torch, np, cfg, label, card, perturbation=None):
+    """One batch of ``cfg`` card vs CPU (:func:`batch_pair`), held to phase
+    4's tolerances or, where a difference exceeds them, or always when
+    ``perturbation`` is given, to twice the spread OPTION_SPREAD_SAMPLES
+    perturbations of the weights by ``perturbation`` (default 1e-7)
+    relative make on the CPU, measured here, where that is larger."""
+    from rankaae_tpu_torch.tools.batch_spread import PERTURBATION, batch_spread
+
+    pair = batch_pair(torch, np, cfg)
+    loss, leaves = pair_errors(pair)
+    loss_atol = dict.fromkeys(loss, PARITY_ATOL)
+    leaf_atol = {"params": LEAF_ATOL, "stats": LEAF_ATOL}
+    leaf_rtol = LEAF_RTOL
+    within = all(loss[n] <= loss_atol[n] for n in loss) and all(
+        d <= leaf_atol[kind] and rel <= leaf_rtol for kind, d, rel in leaves.values())
+    spread = None
+    if perturbation is not None or not within:
+        spread = batch_spread(cfg, cfg.batch_size, samples=OPTION_SPREAD_SAMPLES,
+                              perturbation=perturbation or PERTURBATION)
+        loss_atol = {k: max(PARITY_ATOL, 2 * v) for k, v in spread["losses"].items()}
+        leaf_atol = {k: max(LEAF_ATOL, 2 * v["max_abs"]) for k, v in spread["leaves"].items()}
+        leaf_rtol = max(LEAF_RTOL, 2 * max(v["max_rel"] for v in spread["leaves"].values()))
+    worst = {kind: max(d for k, d, _ in leaves.values() if k == kind) for kind in leaf_atol}
+    worst_rel = max(rel for _, _, rel in leaves.values())
+    print(f"{label}, B {cfg.batch_size}, card vs CPU: per loss {json.dumps(loss)}; leaves max "
+          f"{json.dumps(worst)}, worst relative norm {worst_rel:.3g}; held to loss atol "
+          f"{json.dumps(loss_atol)}, leaf atol {json.dumps(leaf_atol)}, rtol {leaf_rtol:.3g} ("
+          + ("phase 4's" if spread is None else
+             f"phase 4's or twice the CPU spread of {OPTION_SPREAD_SAMPLES} perturbations by "
+             f"{spread['perturbation']:.3g}: losses {json.dumps(spread['losses'])}, leaves "
+             f"{json.dumps(spread['leaves'])}") + f") [{card}]")
+    for n in loss:
+        assert loss[n] <= loss_atol[n], (label, n, loss[n], loss_atol[n])
+    for n, (kind, d, rel) in leaves.items():
+        assert d <= leaf_atol[kind], (label, n, d, leaf_atol[kind])
+        assert rel <= leaf_rtol, (label, n, rel, leaf_rtol)
+
+
+def option_batches(torch, np, pcfg, cfg, card):
+    """Phase 11b: one batch of each protocol card vs CPU from the same
+    weights and draws (:func:`held_batch`)."""
+    quiet = {"dropout_rate": 0.0, "dis_dropout_rate": 0.0, "dis_noise": 0.0}
+    for label, bcfg in (
+            ("11b fused FC batch (n_layers 3)", pcfg.replace(protocol="fused")),
+            ("11b fused compact batch, CNN discriminator, no GRL",
+             cfg.replace(ae_form="compact", use_cnn_discriminator=True,
+                         gradient_reversal=False, protocol="fused", **quiet)),
+            ("11b joint FC batch (n_layers 3)", pcfg.replace(protocol="joint")),
+            ("11b joint normal-form batch", cfg.replace(ae_form="normal", protocol="joint",
+                                                        **quiet))):
+        held_batch(torch, np, bcfg, label, card)
+
+
+def tree_diff(np, a, b):
+    """The largest |difference| of each job's ``losses.csv`` values and of
+    each bundle's leaves between two ``train_sc`` trees (only those that
+    differ)."""
+    diffs = {}
+    for job in sorted(os.listdir(os.path.join(a, "training"))):
+        ja, jb = (os.path.join(w, "training", job) for w in (a, b))
+        for name in ("losses.csv",) + BUNDLES:
+            fa, fb_ = os.path.join(ja, name), os.path.join(jb, name)
+            with open(fa, "rb") as x, open(fb_, "rb") as y:
+                same = x.read() == y.read()
+            if name.endswith(".mpk"):
+                d = bundle_diff(np, fa, fb_)      # the manifests differ in the knob
+            elif same:
+                d = 0.0
+            else:
+                va, vb = (np.genfromtxt(f, delimiter=",", skip_header=1) for f in (fa, fb_))
+                d = float(np.nanmax(np.abs(va - vb))) if va.shape == vb.shape else float("inf")
+            if d:
+                diffs[f"{job}/{name}"] = d
+    return diffs
+
+
+def flat_optim_on_card(torch, np, kc, fb, root, csv, cfg_path, card, expect, spread10b):
+    """Phase 11c: ``train_sc`` of the FC and the normal form (the config's
+    trials, EPOCHS epochs) with ``flat_optim`` and without: every
+    ``losses.csv`` and bundle bit-identical (the normal form under cuDNN's
+    deterministic algorithms; where two runs without the knob are not
+    bit-identical there either, the pair is held to that difference and
+    to twice 10b's perturbation spread); then a checkpoint written without
+    the knob must be refused by a resume with it.  Returns the launches."""
+    from rankaae_tpu_torch.utils.config import Parameters
+
+    trials = Parameters.from_yaml(cfg_path).get("trials")
+    total = {}
+    for form in OPTION_FORMS:
+        torch.backends.cudnn.deterministic = form == "normal"
+        try:
+            works = {}
+            for flat in (False, True):
+                works[flat] = work_dir(root, f"flat_{form}_{flat}", csv, cfg_path, ae_form=form,
+                                       flat_optim=flat, max_epoch=EPOCHS)
+                sec, launches = run_train_sc(torch, kc, fb, works[flat], "cuda")
+                want = expected_launches(expect, trials, form)
+                assert launches == want, (form, flat, launches, want)
+                add_launches(total, launches)
+                print(f"11c train_sc: {form} form, flat_optim {flat}, {trials} trials, "
+                      f"{EPOCHS} epochs, {sec:.2f} s wall, launches {launches} [{card}]")
+            diffs = tree_diff(np, works[False], works[True])
+            if not diffs:
+                print(f"11c: {form} form with flat_optim bit-identical to without (every "
+                      f"losses.csv and bundle of {trials} trials) [{card}]")
+                continue
+            assert form != "FC", diffs
+            again = work_dir(root, f"flat_{form}_again", csv, cfg_path, ae_form=form,
+                             max_epoch=EPOCHS)
+            _, launches = run_train_sc(torch, kc, fb, again, "cuda")
+            add_launches(total, launches)
+            noise = tree_diff(np, works[False], again)
+            bound = max(max(noise.values(), default=0.0),
+                        2 * max(spread10b["train"], spread10b["leaf"]))
+            print(f"11c: {form} form with flat_optim against without: largest differences "
+                  f"{json.dumps(diffs)}; two runs without the knob differ by "
+                  f"{json.dumps(noise)} (not bit-identical on the card under cuDNN's "
+                  f"deterministic algorithms either); held to {bound:.3g} (that difference, "
+                  f"or twice 10b's perturbation spread) [{card}]")
+            assert max(diffs.values()) <= bound, (diffs, noise, bound)
+        finally:
+            torch.backends.cudnn.deterministic = False
+    work = work_dir(root, "flat_resume", csv, cfg_path, max_epoch=1)
+    _, launches = run_train_sc(torch, kc, fb, work, "cuda", "--checkpoint-every", "1")
+    add_launches(total, launches)
+    work_dir(root, "flat_resume", csv, cfg_path, max_epoch=2, flat_optim=True)
+    try:
+        run_train_sc(torch, kc, fb, work, "cuda", "--resume")
+    except ValueError as exc:
+        if "another config" not in str(exc):    # the load_state_tree refusal, not another fault
+            raise
+        print(f"11c: a {trials}-trial checkpoint written without flat_optim, resumed with it: "
+              f"refused ({exc}) [{card}]")
+    else:
+        raise AssertionError("a resume across flat_optim loaded another moment layout")
+    return total
+
+
+def bf16_on_card(torch, np, kc, fb, root, csv, cfg_path, card, expect, pcfg):
+    """Phase 11d: ``train_sc`` of the FC and the normal form with bfloat16
+    activations (the config's trials, EPOCHS epochs): finite losses, the
+    tree, the launches as 11a's, every bundle's leaves float32, job_1's
+    final bundle served by the CLI card vs CPU (float32 inference); then
+    one bfloat16 FC batch card vs CPU (:func:`held_batch` at
+    BF16_PERTURBATION).  Returns the launches."""
+    from rankaae_tpu_torch import serve
+    from rankaae_tpu_torch.utils.checkpoint import load_model_bundle
+    from rankaae_tpu_torch.utils.config import Parameters
+
+    trials = Parameters.from_yaml(cfg_path).get("trials")
+    total = {}
+    for form in OPTION_FORMS:
+        work = work_dir(root, f"bf16_{form}", csv, cfg_path, ae_form=form,
+                        activation_dtype="bfloat16", max_epoch=EPOCHS)
+        sec, launches = run_train_sc(torch, kc, fb, work, "cuda")
+        want = expected_launches(expect, trials, form)
+        assert launches == want, (form, launches, want)
+        add_launches(total, launches)
+        check_tree(np, work, trials, form, 256)
+        for job in sorted(os.listdir(os.path.join(work, "training"))):
+            job_dir = os.path.join(work, "training", job)
+            rows = np.genfromtxt(os.path.join(job_dir, "losses.csv"), delimiter=",",
+                                 skip_header=1, usecols=range(13))    # a trailing comma
+            assert rows.size and np.all(np.isfinite(rows)), (form, job)
+            for name in BUNDLES:
+                params, stats, bcfg, _ = load_model_bundle(os.path.join(job_dir, name))
+                assert bcfg.activation_dtype == "bfloat16"
+                leaves = [params, stats]
+                while leaves:
+                    node = leaves.pop()
+                    if isinstance(node, dict):
+                        leaves.extend(node.values())
+                    else:
+                        assert np.asarray(node).dtype == np.float32, (form, job, name)
+        final = os.path.join(work, "training", "job_1", "final.mpk")
+        out = {}
+        for dev in ("cuda", "cpu"):
+            fb.launches = 0
+            serve.main([final, csv, os.path.join(root, f"bf16_{form}_{dev}"),
+                        "--batch-size", "1024", "--device", dev])
+            if dev == "cuda":
+                total["fused_block"] += fb.launches
+            out[dev] = [np.loadtxt(os.path.join(root, f"bf16_{form}_{dev}_{k}.txt"))
+                        for k in ("styles", "recon")]
+        z_err = np.abs(out["cuda"][0] - out["cpu"][0]).max()
+        y_err = np.abs(out["cuda"][1] - out["cpu"][1]).max()
+        print(f"11d train_sc: {form} form, bfloat16 activations, {trials} trials, {EPOCHS} "
+              f"epochs, {sec:.2f} s wall; losses finite, tree checked, bundles float32, "
+              f"launches {launches} (expected {want}); job_1's final bundle served by the "
+              f"CLI (float32) card vs CPU: styles {z_err:.3g}, reconstructions {y_err:.3g} "
+              f"(atol {SERVE_ATOL}) [{card}]")
+        assert z_err <= SERVE_ATOL and y_err <= SERVE_ATOL, (form, z_err, y_err)
+    held_batch(torch, np, pcfg.replace(activation_dtype="bfloat16", lr_base=BF16_LR),
+               f"11d bfloat16 FC batch (n_layers 3, lr_base {BF16_LR})", card,
+               perturbation=BF16_PERTURBATION)
+    return total
+
+
+def option_profiles(torch, card, splits):
+    """Phase 11e: each option, faithful included, at each (form, T) of
+    OPTION_SHAPES, all through one ``tools/profile_epoch.py`` call apiece:
+    the spectra/s per GPU of its OPTION_STEADY steady epochs (the warm-up
+    epochs after the first) and their median, then a profiled epoch's
+    launches, device time (summed, and busy) and idle share."""
+    from rankaae_tpu_torch.tools.profile_epoch import profile_epoch
+
+    rows = []
+    for form, trials in OPTION_SHAPES:
+        for label, kw in OPTIONS:
+            prof = profile_epoch(ae_form=form, trials=trials, splits=splits,
+                                 warmup=1 + OPTION_STEADY, protocol=kw.get("protocol"),
+                                 flat_optim=kw.get("flat_optim", False),
+                                 activation_dtype=kw.get("activation_dtype"))
+            top = prof.pop("top_kernels")
+            rates = [trials * prof["n_train"] / sec for sec in prof["warmup_seconds"][1:]]
+            row = {"form": form, "trials": trials, "option": label,
+                   "spectra_per_s_per_gpu": statistics.median(rates),
+                   "steady_epochs_spectra_per_s_per_gpu": rates,
+                   "profiled_wall_ms": prof["wall_ms"],
+                   "device_ms": prof["device_kernel_ms"],
+                   "device_busy_ms": prof["device_busy_ms"],
+                   "idle_share": prof["device_idle_share"],
+                   "launches": prof["kernel_launches"]}
+            rows.append(row)
+            print(f"11e {form} T={trials} {label}: " + json.dumps(row)
+                  + " top kernels " + json.dumps([(k["name"][:60], k["launches"],
+                                                   round(k["ms"], 3)) for k in top[:5]])
+                  + f" [{card}]")
+            torch.cuda.empty_cache()
+    print("11e: " + json.dumps(rows))
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1553,7 +1894,7 @@ def main() -> int:
         t0 = time.perf_counter()
         normal_launches = normal_trials(torch, np, kc, fb, tmp9, csv8, cfg_path, card, expect)
         ncfg = cfg.replace(ae_form="normal")
-        trial_throughput(torch, ncfg, splits, card, NORMAL_TRIALS_T, label="10a")
+        trial_throughput(torch, ncfg, splits, card, NORMAL_TRIALS_T, label="10a", profiled=(1,))
         print(f"10a: {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
@@ -1581,17 +1922,37 @@ def main() -> int:
         print(f"10c: {time.perf_counter() - t0:.1f} s; phases 1-10: "
               f"{time.perf_counter() - t_start:.1f} s")
 
+        # ---- 11. the trainer's remaining options ------------------------- #
+        t0 = time.perf_counter()
+        option_launches = option_trials(torch, np, kc, fb, tmp9, csv8, cfg_path, card, expect)
+        print(f"11a: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        option_batches(torch, np, pcfg, cfg, card)
+        print(f"11b: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        add_launches(option_launches, flat_optim_on_card(torch, np, kc, fb, tmp9, csv8,
+                                                         cfg_path, card, expect, spread))
+        print(f"11c: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        add_launches(option_launches, bf16_on_card(torch, np, kc, fb, tmp9, csv8, cfg_path,
+                                                   card, expect, pcfg))
+        print(f"11d: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        option_profiles(torch, card, splits)
+        print(f"11e: {time.perf_counter() - t0:.1f} s; phases 1-11: "
+              f"{time.perf_counter() - t_start:.1f} s")
+
     for name in ("kendall_pair_sums", "kendall_grad_rows"):
         launches[name] += conv_launches[name] + trial_launches[name] + recal_launches[name] \
             + sum(run[1][name] for run in resume_runs.values()) + normal_launches[name] \
-            + qved_launches[name]
+            + qved_launches[name] + option_launches[name]
     k3_launches += conv_launches["fused_block"] + conv_launches["fused_block_serve"] \
         + recal_launches["fused_block"] + sum(report_k3.values()) \
-        + normal_launches["fused_block"]
+        + normal_launches["fused_block"] + option_launches["fused_block"]
     print(f"main-path launches: K1 {launches['kendall_pair_sums']}, K2 "
-          f"{launches['kendall_grad_rows']} (phase 3, 7a, 8a, 9a, 9b, 10a and 10c training), "
-          f"K3 {k3_launches} (phase 6 CLI, 7a training and CLI, 9b training and amplitude "
-          f"gains, 9c reports, 10a training)")
+          f"{launches['kendall_grad_rows']} (phase 3, 7a, 8a, 9a, 9b, 10a, 10c, 11a, 11c and "
+          f"11d training), K3 {k3_launches} (phase 6 CLI, 7a training and CLI, 9b training "
+          f"and amplitude gains, 9c reports, 10a, 11a, 11c and 11d training, 11d CLI)")
 
     rows = []
     for name, line in (("kendall_pair_sums", 49), ("kendall_grad_rows", 91)):
@@ -1616,7 +1977,8 @@ def main() -> int:
     print("library_ms: null — no single PyTorch call computes the Kendall pair sums "
           "or their gradient rows, nor the fused EncodingBlock (two convs, BNs, PReLUs, "
           "residual and excitation MLP); K3's row is at the serving shape C 4, B 1024; "
-          "launches are the main paths' (phases 3, 6, 7a, 8a, 9a, 9b, 9c, 10a and 10c)")
+          "launches are the main paths' (phases 3, 6, 7a, 8a, 9a, 9b, 9c, 10a, 10c, 11a, "
+          "11c and 11d)")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,12 @@ c_out in (2, 4), length 256, 11 taps, excitation 2: the decoders' tail) runs
 as ``ops/fused_block_cuda.fused_block``, which launches the K3 kernel on a
 CUDA tensor; stacked, it launches K3 once per trial
 (``fused_block_trials``).  Every other block, and every block in train
-mode, runs its modules one by one.
+mode, runs its modules one by one.  K3 is a float32 kernel: under
+bfloat16 activations the fused block takes a float32 copy of its input and
+casts K3's output back, so K3 still runs (its bfloat16 instantiation is
+kernel work for later, ROADMAP §2); the result differs from the JAX
+package's bfloat16 block, which rounds at each primitive, by
+bfloat16-sized amounts.
 """
 from __future__ import annotations
 
@@ -84,8 +89,8 @@ class EncodingBlock(nn.Module):
                       self.fc1.weight, self.fc1.bias, self.relu_excit_1.weight,
                       self.fc2.weight, self.fc2.bias, self.relu_excit_2.weight)
             if isinstance(self, TrialModule):
-                return fused_block_cuda.fused_block_trials(x, *params)
-            return fused_block_cuda.fused_block(x.contiguous(), *params)
+                return fused_block_cuda.fused_block_trials(x.float(), *params).to(x.dtype)
+            return fused_block_cuda.fused_block(x.float().contiguous(), *params).to(x.dtype)
         out = self.bn1(x) if self.has_bn1 else x
         residual = out
         out = self.relu1(self.conv1(out))

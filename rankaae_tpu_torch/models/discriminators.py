@@ -21,7 +21,8 @@ def _noise_and_reverse(module, x, beta, sampler):
     if module.training and module.noise > 0:
         if sampler is None:
             raise ValueError("train-mode discriminator noise needs a sampler")
-        x = x + module.noise * sampler.normal("dis_noise", x.shape)
+        # drawn in float32, used in x's dtype (JAX draws it in x's dtype)
+        x = x + module.noise * sampler.normal("dis_noise", x.shape).to(x.dtype)
     return x if beta is None else grad_reverse(x, beta)
 
 

@@ -19,7 +19,8 @@ class _GradReverse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (beta,) = ctx.saved_tensors
-        # the gradient stays in the primal's dtype (beta is float32)
+        # the gradient stays in the primal's dtype (``grl.py:33-34`` in the
+        # JAX package)
         return (-g * beta).to(g.dtype), None
 
 
@@ -27,6 +28,7 @@ def grad_reverse(x: torch.Tensor, beta) -> torch.Tensor:
     """Identity forward; ``dL/dx = -beta * g`` backward.  ``beta`` may be a
     Python number, a 0-d tensor, or a per-trial tensor of shape (T, 1, 1)
     for a (T, B, C) input (``alpha_limit`` and ``alpha_flat_step`` may
-    differ between trials)."""
-    beta = torch.as_tensor(beta, dtype=torch.float32, device=x.device)
+    differ between trials).  ``beta`` is taken in ``x``'s dtype, as the JAX
+    discriminators pass it (``discriminators.py:42,70``)."""
+    beta = torch.as_tensor(beta, device=x.device).to(x.dtype)
     return _GradReverse.apply(x, beta)

@@ -8,6 +8,8 @@ exposes eval-mode ``encode``/``decode``/``discriminate`` and a fused
 The ``_encode``/``_decode``/``_reconstruct`` methods take and return device
 tensors; the batched serving path (``serve.py``) uses them.  On the card,
 the conv decoders' stride-1 4->4 and 2->2 blocks run as the K3 kernel.
+The modules compute in float32 whatever the bundle's ``activation_dtype``
+(``rankaae_tpu/models/inference.py:28-36`` pins the same).
 """
 from __future__ import annotations
 
@@ -37,10 +39,11 @@ class InferenceModel:
         self.cfg = cfg
         self.nstyle = cfg.nstyle
         self.out_gain = float(out_gain)
-        encoder, decoder = build_autoencoder(cfg)
+        cfg32 = cfg.replace(activation_dtype="float32")
+        encoder, decoder = build_autoencoder(cfg32)
         self.models = {"enc": encoder, "dec": decoder}
         if params.get("dis"):
-            self.models["dis"] = build_discriminator(cfg)
+            self.models["dis"] = build_discriminator(cfg32)
         sds = from_jax({k: params[k] for k in self.models}, batch_stats)
         for role, m in self.models.items():
             m.load_state_dict(sds[role])

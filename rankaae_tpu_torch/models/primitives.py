@@ -34,6 +34,27 @@ exports and imports them in that module's ``state_dict`` layout, and
 :func:`reset_parameters` with ``trial=t`` draws them in that module's
 order.  A module builds its layers through :func:`layers_of`, which gives
 the single-trial classes or the stacked ones.
+
+Activations in bfloat16 (``activation_dtype``, ``primitives.py:60-96``,
+``:152-155``, ``:178``, ``:208-223``, ``:253-271`` and ``:307-315`` in the
+JAX package): :func:`set_activation_dtype` sets ``act_dtype`` on every
+module of a tree (the registry does it from the config; there is no
+process-wide setting), and the primitives cast as the flax modules do.
+Parameters, running statistics and losses stay float32.
+
+* ``Linear``/``TrialLinear`` and the transposed convolutions: operands
+  rounded to bfloat16, products summed in float32 (the operands are held
+  as float32 copies of the rounded values, whose products float32 holds
+  exactly: JAX's ``preferred_element_type=float32``), the float32 bias
+  added, then one rounding of the output to bfloat16, in JAX's order.
+* ``Conv1d``/``TrialConv1d``: a bfloat16 convolution (bfloat16 output, as
+  JAX's ``preferred_element_type=dt``), then the bias rounded to bfloat16
+  and added in bfloat16.
+* BatchNorm: statistics and normalisation from a float32 copy, the output
+  cast back to the input's dtype; PReLU: the slope cast to the input's
+  dtype; dropout: in the input's dtype.
+
+With ``act_dtype`` float32 (the default) nothing is cast.
 """
 from __future__ import annotations
 
@@ -62,10 +83,54 @@ def set_matmul_precision(name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# activation dtype
+# ---------------------------------------------------------------------------
+
+#: ``activation_dtype`` names -> torch dtypes
+ACTIVATION_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def set_activation_dtype(module: nn.Module, name: str) -> nn.Module:
+    """Set ``act_dtype`` (``name``: float32 or bfloat16) on ``module`` and
+    every module under it; returns ``module``."""
+    dtype = ACTIVATION_DTYPES[name]
+    for m in module.modules():
+        m.act_dtype = dtype
+    return module
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` and held as float32: a matmul operand
+    whose products float32 holds exactly.  At float32 ``x`` itself, so a
+    module cast to float64 stays float64."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def _in_act(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float32 result in ``dtype``: ``y`` itself at float32, as
+    :func:`_rounded`."""
+    return y if dtype == torch.float32 else y.to(dtype)
+
+
+def _widened(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as float32 where it is bfloat16 (BatchNorm's statistics), else
+    as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+# ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
 
-Linear = nn.Linear
+
+class Linear(nn.Linear):
+    """``nn.Linear``, in ``act_dtype`` (see the module docstring)."""
+
+    act_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.act_dtype
+        return _in_act(F.linear(_rounded(x, dt), _rounded(self.weight, dt), self.bias), dt)
 
 
 class PReLU(nn.PReLU):
@@ -75,19 +140,39 @@ class PReLU(nn.PReLU):
         super().__init__(num_parameters, init=init_value)
         self.init_value = init_value
 
+    def forward(self, x):
+        return F.prelu(x, self.weight.to(x.dtype))
+
 
 class BatchNorm(nn.BatchNorm1d):
-    """``BatchNorm1d(affine=False)``, momentum 0.1, eps 1e-5."""
+    """``BatchNorm1d(affine=False)``, momentum 0.1, eps 1e-5; statistics in
+    float32, the output in the input's dtype."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1, affine=False)
 
+    def forward(self, x):
+        return super().forward(_widened(x)).to(x.dtype)
 
-Conv1d = nn.Conv1d
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d``, in ``act_dtype`` (see the module docstring)."""
+
+    act_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.act_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y + self.bias.to(dt)[:, None]
 
 
 class ConvTranspose1d(nn.ConvTranspose1d):
-    """``ConvTranspose1d`` over (B, C, L) with groups and kernel == stride."""
+    """``ConvTranspose1d`` over (B, C, L) with groups and kernel == stride,
+    in ``act_dtype`` (see the module docstring)."""
+
+    act_dtype = torch.float32
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, groups: int = 1):
@@ -97,6 +182,11 @@ class ConvTranspose1d(nn.ConvTranspose1d):
                 "architectures (sc/clustering/model.py:114-119,140)")
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          groups=groups)
+
+    def forward(self, x):
+        dt = self.act_dtype
+        return _in_act(F.conv_transpose1d(_rounded(x, dt), _rounded(self.weight, dt),
+                                          self.bias, self.stride, 0, 0, self.groups), dt)
 
 
 class Dropout(nn.Module):
@@ -125,7 +215,9 @@ class Dropout(nn.Module):
 
 
 class TrialLinear(nn.Module):
-    """T independent ``nn.Linear``s over (T, B, in)."""
+    """T independent ``nn.Linear``s over (T, B, in), in ``act_dtype``."""
+
+    act_dtype = torch.float32
 
     def __init__(self, trials: int, in_features: int, out_features: int):
         super().__init__()
@@ -134,7 +226,9 @@ class TrialLinear(nn.Module):
         self.bias = nn.Parameter(torch.empty(trials, out_features))
 
     def forward(self, x):
-        return torch.baddbmm(self.bias[:, None, :], x, self.weight.transpose(1, 2))
+        dt = self.act_dtype
+        return _in_act(torch.baddbmm(self.bias[:, None, :], _rounded(x, dt),
+                                     _rounded(self.weight, dt).transpose(1, 2)), dt)
 
 
 class TrialPReLU(nn.Module):
@@ -147,7 +241,7 @@ class TrialPReLU(nn.Module):
 
     def forward(self, x):
         # torch's prelu: x where x > 0, else w * x (its gradients too)
-        return torch.where(x > 0, x, self.weight[:, None, :] * x)
+        return torch.where(x > 0, x, self.weight[:, None, :].to(x.dtype) * x)
 
 
 class TrialBatchNorm(nn.Module):
@@ -163,16 +257,19 @@ class TrialBatchNorm(nn.Module):
 
     def forward(self, x):
         t, b, c = x.shape
-        y = F.batch_norm(x.transpose(0, 1).reshape(b, t * c), self.running_mean.view(-1),
-                         self.running_var.view(-1), None, None, self.training, 0.1, 1e-5)
-        return y.view(b, t, c).transpose(0, 1)
+        y = F.batch_norm(_widened(x).transpose(0, 1).reshape(b, t * c),
+                         self.running_mean.view(-1), self.running_var.view(-1), None, None,
+                         self.training, 0.1, 1e-5)
+        return y.view(b, t, c).transpose(0, 1).to(x.dtype)
 
 
 class TrialConv1d(nn.Module):
     """T independent ``nn.Conv1d``s over (B, T*C_in, L): weight (T, C_out,
     C_in/groups, k), bias (T, C_out), run as one convolution with
     T*groups groups; replicate padding goes through ``F.pad`` first, as in
-    ``nn.Conv1d``."""
+    ``nn.Conv1d``.  In ``act_dtype``, as :class:`Conv1d`."""
+
+    act_dtype = torch.float32
 
     def __init__(self, trials: int, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, padding_mode: str = "zeros",
@@ -185,17 +282,26 @@ class TrialConv1d(nn.Module):
         self.bias = nn.Parameter(torch.empty(trials, out_channels))
 
     def forward(self, x):
-        pad = self.padding
+        dt, pad = self.act_dtype, self.padding
+        if dt != torch.float32:
+            x = x.to(dt)
         if self.replicate and pad:
             x, pad = F.pad(x, (pad, pad), mode="replicate"), 0
-        return F.conv1d(x, self.weight.flatten(0, 1), self.bias.flatten(), self.stride, pad,
-                        1, self.weight.shape[0] * self.groups)
+        groups = self.weight.shape[0] * self.groups
+        if dt == torch.float32:
+            return F.conv1d(x, self.weight.flatten(0, 1), self.bias.flatten(), self.stride,
+                            pad, 1, groups)
+        y = F.conv1d(x, self.weight.flatten(0, 1).to(dt), None, self.stride, pad, 1, groups)
+        return y + self.bias.flatten().to(dt)[:, None]
 
 
 class TrialConvTranspose1d(nn.Module):
     """T independent :class:`ConvTranspose1d`s (kernel == stride) over
     (B, T*C_in, L): weight (T, C_in, C_out/groups, k), bias (T, C_out), one
-    transposed convolution with T*groups groups."""
+    transposed convolution with T*groups groups, in ``act_dtype``, as
+    :class:`ConvTranspose1d`."""
+
+    act_dtype = torch.float32
 
     def __init__(self, trials: int, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, groups: int = 1):
@@ -209,8 +315,10 @@ class TrialConvTranspose1d(nn.Module):
         self.bias = nn.Parameter(torch.empty(trials, out_channels))
 
     def forward(self, x):
-        return F.conv_transpose1d(x, self.weight.flatten(0, 1), self.bias.flatten(),
-                                  self.stride, 0, 0, self.weight.shape[0] * self.groups)
+        dt, groups = self.act_dtype, self.weight.shape[0] * self.groups
+        return _in_act(F.conv_transpose1d(_rounded(x, dt),
+                                          _rounded(self.weight.flatten(0, 1), dt),
+                                          self.bias.flatten(), self.stride, 0, 0, groups), dt)
 
 
 class TrialChannelPReLU(TrialPReLU):
@@ -218,7 +326,7 @@ class TrialChannelPReLU(TrialPReLU):
     with the T*C weights, as ``nn.PReLU`` runs it."""
 
     def forward(self, x):
-        return F.prelu(x, self.weight.view(-1))
+        return F.prelu(x, self.weight.view(-1).to(x.dtype))
 
 
 class TrialChannelBatchNorm(TrialBatchNorm):
@@ -226,8 +334,9 @@ class TrialChannelBatchNorm(TrialBatchNorm):
     norm over the T*C channels, each normalised over (B, L)."""
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean.view(-1), self.running_var.view(-1), None,
-                            None, self.training, 0.1, 1e-5)
+        return F.batch_norm(_widened(x), self.running_mean.view(-1),
+                            self.running_var.view(-1), None, None, self.training, 0.1,
+                            1e-5).to(x.dtype)
 
 
 class TrialLengthLinear(TrialLinear):

@@ -49,9 +49,10 @@ def recalibrate_batch_stats(cfg, params: Dict[str, Any], batch_stats: Dict[str, 
     """``batch_stats`` with the encoder's and decoder's BatchNorm leaves
     replaced by the statistics of one train-mode pass over ``train_spec``
     ((N, dim_in), numpy or a tensor).  The pass runs with dropout on, as
-    training's activations did; its keep-masks come from a generator seeded
-    0 on ``device``, so they are not the JAX package's ``PRNGKey(0)``
-    draws.  Other roles pass through."""
+    training's activations did, in the config's ``activation_dtype`` (the
+    JAX package's pass runs in the training dtype); its keep-masks come
+    from a generator seeded 0 on ``device``, so they are not the JAX
+    package's ``PRNGKey(0)`` draws.  Other roles pass through."""
     dev = resolve_device(device)
     encoder, decoder = build_autoencoder(cfg)
     models = {"enc": encoder, "dec": decoder}

@@ -3,7 +3,8 @@
 Every form the config schema accepts (FC, ``normal``, ``compact``,
 ``qved``) and both discriminators.  With ``trials=T`` the builders return
 the trainer's modules, stacked T times over (T, B, ...); without, the
-single-trial modules that serving and the bundles use.
+single-trial modules that serving and the bundles use.  The modules
+compute in the config's ``activation_dtype``.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from rankaae_tpu_torch.models.encoders import (
     TrialFCEncoder,
     TrialQvecEncoder,
 )
+from rankaae_tpu_torch.models.primitives import set_activation_dtype
 
 #: every form the config schema accepts -> ((encoder, stacked encoder),
 #: (decoder, stacked decoder))
@@ -54,21 +56,27 @@ def _build(classes, trials: Optional[int], **kw):
 def build_autoencoder(cfg, trials: Optional[int] = None):
     """Instantiate (encoder, decoder) modules from a TrainConfig: the
     single-trial modules, or with ``trials`` the trainer's (T, B, ...)
-    modules."""
+    modules, computing in the config's ``activation_dtype``."""
     enc, dec = AE_FORMS[cfg.ae_form]
-    return (_build(enc, trials, nstyle=cfg.nstyle, dropout_rate=cfg.dropout_rate,
-                   dim_in=cfg.dim_in, n_layers=cfg.n_layers),
-            _build(dec, trials, nstyle=cfg.nstyle, dropout_rate=cfg.dropout_rate,
-                   dim_out=cfg.dim_out, last_layer_activation=cfg.decoder_activation,
-                   n_layers=cfg.n_layers))
+    dtype = cfg.activation_dtype
+    return (set_activation_dtype(_build(enc, trials, nstyle=cfg.nstyle,
+                                        dropout_rate=cfg.dropout_rate, dim_in=cfg.dim_in,
+                                        n_layers=cfg.n_layers), dtype),
+            set_activation_dtype(_build(dec, trials, nstyle=cfg.nstyle,
+                                        dropout_rate=cfg.dropout_rate, dim_out=cfg.dim_out,
+                                        last_layer_activation=cfg.decoder_activation,
+                                        n_layers=cfg.n_layers), dtype))
 
 
 def build_discriminator(cfg, trials: Optional[int] = None):
     """Instantiate the discriminator (reference ``trainer.py:455-463``): the
-    single-trial module, or with ``trials`` the trainer's."""
+    single-trial module, or with ``trials`` the trainer's, computing in the
+    config's ``activation_dtype``."""
     if cfg.use_cnn_discriminator:
-        return _build((DiscriminatorCNN, TrialDiscriminatorCNN), trials, nstyle=cfg.nstyle,
-                      dropout_rate=cfg.dis_dropout_rate, noise=cfg.dis_noise)
-    return _build((DiscriminatorFC, TrialDiscriminatorFC), trials, nstyle=cfg.nstyle,
-                  dropout_rate=cfg.dis_dropout_rate, noise=cfg.dis_noise,
-                  layers=cfg.FC_discriminator_layers)
+        dis = _build((DiscriminatorCNN, TrialDiscriminatorCNN), trials, nstyle=cfg.nstyle,
+                     dropout_rate=cfg.dis_dropout_rate, noise=cfg.dis_noise)
+    else:
+        dis = _build((DiscriminatorFC, TrialDiscriminatorFC), trials, nstyle=cfg.nstyle,
+                     dropout_rate=cfg.dis_dropout_rate, noise=cfg.dis_noise,
+                     layers=cfg.FC_discriminator_layers)
+    return set_activation_dtype(dis, cfg.activation_dtype)

@@ -27,14 +27,23 @@ updated in place too.  The learning rate is a 0-d tensor, or one per trial,
 (T,), for parameters stacked on a leading trial axis: it is then broadcast
 per leaf as (T, 1, ...).  The step count is one host int, as all trials
 step together.
+
+:class:`FlatParameters` is the ``flat_optim`` layout (counterpart of
+``rankaae_tpu/optim/optimizers.py:162-190``): the parameters of the
+trainer's modules become views into one flat float32 buffer, so each
+optimizer's parameter subset is one slice of it and its ~14 elementwise
+operations run once per slice instead of once per parameter.  The
+arithmetic of every element is unchanged, so the two layouts give the same
+numbers bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 @dataclasses.dataclass
@@ -153,6 +162,103 @@ def make_adabound(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
             p.sub_(eff * m)
 
     return Optimizer(moment_init, update)
+
+
+class FlatParameters:
+    """The parameters of ``modules`` (name -> module) as views into one flat
+    float32 buffer, module after module in the given order.
+
+    The layout is parameter-major: each parameter keeps its own contiguous
+    (T, ...) block, so the modules, cuDNN and K3 (which takes a trial's
+    slice of each parameter, ``ops/fused_block_cuda.py``) see contiguous
+    tensors as without the knob.  Each block starts on a multiple of
+    :data:`ALIGN` elements (512 bytes, the CUDA caching allocator's
+    alignment), so cuBLAS and cuDNN, whose choice of kernel may depend on a
+    pointer's alignment, see the alignment of separately allocated
+    parameters; the gaps hold zeros, which every optimizer leaves at zero
+    (a zero gradient and zero moments give a zero step).  A learning rate
+    per trial (T,) is spread over the elements by a per-element trial index
+    (:meth:`lr`), since a parameter-major slice has no trial axis to
+    broadcast over.  A subset of modules adjacent in the order is one slice
+    (:meth:`view`).
+
+    Make it after the modules' last ``.to(device)``: ``to`` replaces the
+    parameters' storage.  Everything else writes into the parameters in
+    place (``load_state_dict``, ``load_trial_state_dict``,
+    ``reset_parameters``, the trainer's ``load_state_tree``) and keeps the
+    views."""
+
+    #: elements each parameter's block is aligned to
+    ALIGN = 128
+
+    def __init__(self, modules: Dict[str, nn.Module], trials: int):
+        self.order = tuple(modules)
+        self.spans: Dict[str, Tuple[int, int]] = {}
+        #: zeros after each parameter's elements, per module
+        self._pads: Dict[str, List[int]] = {}
+        params, offsets, off = [], [], 0
+        for name, m in modules.items():
+            start, pads = off, []
+            for p in m.parameters():
+                size = -(-p.numel() // self.ALIGN) * self.ALIGN
+                params.append(p)
+                offsets.append(off)
+                pads.append(size - p.numel())
+                off += size
+            self.spans[name], self._pads[name] = (start, off), pads
+        device = params[0].device
+        self.buffer = torch.zeros(off, device=device)
+        self._zeros = torch.zeros(self.ALIGN, device=device)
+        with torch.no_grad():
+            for p, o in zip(params, offsets):
+                self.buffer[o:o + p.numel()].copy_(p.detach().reshape(-1))
+                p.data = self.buffer[o:o + p.numel()].view_as(p)
+        #: the trial of each element (every parameter leads with the trial
+        #: axis; the gaps count as trial 0); None at T 1, where a (1,) lr
+        #: broadcasts as it is
+        self.trial = None
+        if trials > 1:
+            pieces = []
+            for p, pad in zip(params, (n for name in self.order for n in self._pads[name])):
+                pieces.append(torch.arange(trials, device=device)
+                              .repeat_interleave(p[0].numel()))
+                pieces.append(torch.zeros(pad, dtype=torch.long, device=device))
+            self.trial = torch.cat(pieces)
+
+    def span(self, keys: Sequence[str]) -> Tuple[int, int]:
+        """[start, end) of the modules ``keys``, which must be adjacent and
+        in the buffer's order."""
+        spans = [self.spans[k] for k in keys]
+        for (_, end), (start, _) in zip(spans, spans[1:]):
+            if end != start:
+                raise ValueError(f"modules {keys} are not adjacent in the flat buffer "
+                                 f"(order {self.order})")
+        return spans[0][0], spans[-1][1]
+
+    def view(self, keys: Sequence[str], of: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The modules ``keys``' slice of the buffer (or of ``of``, a tensor
+        laid out as it)."""
+        start, end = self.span(keys)
+        return (self.buffer if of is None else of)[start:end]
+
+    def flatten(self, keys: Sequence[str], grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Per-parameter tensors of the modules ``keys``' parameters, in
+        their order, as one flat tensor laid out as :meth:`view` (one
+        concatenation, zeros in the gaps)."""
+        pads = [n for k in keys for n in self._pads[k]]
+        pieces = []
+        for g, pad in zip(grads, pads):
+            pieces.append(g.reshape(-1))
+            if pad:
+                pieces.append(self._zeros[:pad])
+        return torch.cat(pieces)
+
+    def lr(self, lr: torch.Tensor, keys: Sequence[str]) -> torch.Tensor:
+        """A per-trial lr (T,) as one value per element of :meth:`view`."""
+        if self.trial is None:
+            return lr
+        start, end = self.span(keys)
+        return lr[self.trial[start:end]]
 
 
 OPTIMIZERS: Dict[str, Callable[..., Optimizer]] = {

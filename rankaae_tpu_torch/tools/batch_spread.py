@@ -1,10 +1,10 @@
-"""How well-conditioned one faithful training batch is, on the CPU.
+"""How well-conditioned one training batch is, on the CPU.
 
     python -m rankaae_tpu_torch.tools.batch_spread [--ae-form normal]
         [--cnn-discriminator] [--batch-size 1024] [--lr-base 1e-3] [--samples 3]
         [--perturb weights|inputs]
 
-Runs one faithful ``_train_batch`` of ``example/fix_config.yaml`` (with the
+Runs one ``_train_batch`` of ``example/fix_config.yaml`` (with the
 given overrides, dropout and discriminator noise at 0) from seeded weights
 and fixed draws, then again ``--samples`` times from the same weights each
 multiplied by (1 + 1e-7 N(0, 1)) (``--perturb inputs``: from the same
@@ -16,8 +16,11 @@ the largest per-leaf |diff| / |leaf|, Frobenius).  A perturbation of 1e-7 is
 float32 rounding, so no comparison of this batch across two devices or two
 stacks can hold tighter than these spreads.  The input perturbation
 reaches what the weight perturbation does not: a loss that divides by a
-sum of inputs near 0 (the flex target's input means).  Runs on the CPU
-only.
+sum of inputs near 0 (the flex target's input means).  :func:`batch_spread`
+also takes the relative size (``perturbation``: 2^-9, half a bfloat16
+unit, for a config with bfloat16 activations) and any config, whose
+``protocol``, ``flat_optim`` and ``activation_dtype`` apply.  Runs on the
+CPU only.
 """
 from __future__ import annotations
 
@@ -37,11 +40,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 PERTURBATION = 1e-7
 
 
-def one_batch(cfg: TrainConfig, spec, aux, draws, perturb_seed=None, perturb="weights"):
+def one_batch(cfg: TrainConfig, spec, aux, draws, perturb_seed=None, perturb="weights",
+              perturbation: float = PERTURBATION):
     """Losses and state dicts after one batch from the weights of seed 0,
     the weights (or, ``perturb="inputs"``, the inputs ``spec``) perturbed
-    by 1e-7 relative with ``perturb_seed`` unless it is None.  Both
-    optimizers' second moments start at 1e-8 (see
+    by ``perturbation`` relative with ``perturb_seed`` unless it is None.
+    Every optimizer's second moments start at 1e-8 (see
     ``tests/torch_parity.py``)."""
     tr = RankAAETrainer(cfg, n_train=spec.shape[0], n_val=spec.shape[0], device="cpu")
     state = tr.init_state(0)
@@ -52,7 +56,7 @@ def one_batch(cfg: TrainConfig, spec, aux, draws, perturb_seed=None, perturb="we
             targets = ([spec] if perturb == "inputs" else
                        [p for m in tr.models.values() for p in m.parameters()])
             for p in targets:
-                p.mul_(1 + PERTURBATION * torch.randn(p.shape, generator=gen))
+                p.mul_(1 + perturbation * torch.randn(p.shape, generator=gen))
     for o in state.opt.values():
         for v in o.nu:
             v.fill_(1e-8)
@@ -64,7 +68,7 @@ def one_batch(cfg: TrainConfig, spec, aux, draws, perturb_seed=None, perturb="we
 
 
 def batch_spread(cfg: TrainConfig, batch_size: int, samples: int = 3, data=None,
-                 perturb: str = "weights") -> dict:
+                 perturb: str = "weights", perturbation: float = PERTURBATION) -> dict:
     """The spreads of one batch of ``data`` ((spec, aux), default the
     synthetic spectra of seed 11) under a perturbation of the weights or
     the inputs (``perturb``), as the module docstring says."""
@@ -85,7 +89,8 @@ def batch_spread(cfg: TrainConfig, batch_size: int, samples: int = 3, data=None,
     params = {f"{k}.{n}" for k, m in RankAAETrainer(cfg, 1, 1, device="cpu").models.items()
               for n, _ in m.named_parameters()}
     for s in range(samples):
-        losses, leaves = one_batch(cfg, spec, aux, draws, perturb_seed=s + 1, perturb=perturb)
+        losses, leaves = one_batch(cfg, spec, aux, draws, perturb_seed=s + 1, perturb=perturb,
+                                   perturbation=perturbation)
         for k in losses:
             loss_spread[k] = max(loss_spread[k], abs(losses[k] - base_losses[k]))
         for name, ref in base_leaves.items():
@@ -95,7 +100,8 @@ def batch_spread(cfg: TrainConfig, batch_size: int, samples: int = 3, data=None,
             entry["max_rel"] = max(entry["max_rel"], (d.norm() / ref.norm()).item())
     return {"ae_form": cfg.ae_form, "use_cnn_discriminator": cfg.use_cnn_discriminator,
             "batch_size": batch_size, "lr_base": cfg.lr_base, "samples": samples,
-            "perturbation": PERTURBATION, "perturb": perturb, "losses": loss_spread,
+            "protocol": cfg.protocol, "activation_dtype": cfg.activation_dtype,
+            "perturbation": perturbation, "perturb": perturb, "losses": loss_spread,
             "leaves": leaf}
 
 

@@ -1,8 +1,8 @@
-"""The training core, faithful protocol (counterpart of
-``rankaae_tpu/train/trainer.py``; reference ``sc/clustering/trainer.py:65-315``).
+"""The training core (counterpart of ``rankaae_tpu/train/trainer.py``;
+reference ``sc/clustering/trainer.py:65-315``).
 
-The per-batch protocol re-encodes from scratch before every loss and steps a
-dedicated optimizer per loss, in the reference order: adversarial (GRL) ->
+The faithful per-batch protocol re-encodes from scratch before every loss
+and steps a dedicated optimizer per loss, in the reference order: adversarial (GRL) ->
 kendall -> reconstruction -> mutual-info -> smoothness
 (``trainer.py:103-204``), with the parameter subsets of :data:`OPT_SPECS`.
 The train-mode forwards that exist in the reference only as side effects
@@ -28,11 +28,22 @@ of a T-trial run with seed s is the 1-trial run with seed s + g.  One
 launch of each kernel serves all T trials, for every form (K3, the conv
 decoders' fused eval-mode block, is one launch per trial).
 
-The faithful protocol is ported for every form (FC, ``normal``,
-``compact``, ``qved``), both discriminators, gradient reversal on or off
-(the non-GRL branch steps a D and a G optimizer) and the four optimizers.
-The ``fused``/``joint`` protocols, ``flat_optim`` and bfloat16 activations
-raise ``NotImplementedError``.
+Every form (FC, ``normal``, ``compact``, ``qved``) trains, with both
+discriminators, gradient reversal on or off (the non-GRL branch steps a D
+and a G optimizer) and the four optimizers, under each of the JAX
+package's options:
+
+* ``protocol: fused`` (``trainer.py:518-752``): one shared forward graph a
+  batch; each loss's gradient over its optimizer's subset from it, every
+  update computed from the base parameters and applied once as their sum;
+* ``protocol: joint`` (``trainer.py:758-854``): one weighted total loss,
+  one backward, one optimizer over all parameters and one plateau
+  scheduler (GRL only, as the config validates);
+* ``flat_optim`` (``optim/optimizers.py::FlatParameters``): the
+  parameters as views into one flat buffer, one slice an optimizer;
+* ``activation_dtype: bfloat16``: the modules compute in bfloat16 as the
+  registry sets them (``models/primitives.py``); parameters, moments,
+  statistics, losses and the validation metrics stay float32.
 """
 from __future__ import annotations
 
@@ -55,7 +66,12 @@ from rankaae_tpu_torch.ops.losses import (
     smoothness_loss,
 )
 from rankaae_tpu_torch.ops.stats import max_interstyle_spearman, min_style_shapiro
-from rankaae_tpu_torch.optim.optimizers import MomentState, Optimizer, make_optimizer
+from rankaae_tpu_torch.optim.optimizers import (
+    FlatParameters,
+    MomentState,
+    Optimizer,
+    make_optimizer,
+)
 from rankaae_tpu_torch.optim.plateau import PlateauState, plateau_init, plateau_update
 from rankaae_tpu_torch.utils.config import TrainConfig
 from rankaae_tpu_torch.utils.device import resolve_device
@@ -80,6 +96,10 @@ OPT_SPECS = {
     "generator": (("enc",), "lr_ratio_gen", "gen_beta", False),
     "adversarial": (("dis", "enc"), "lr_ratio_dis", "dis_beta", False),
 }
+
+#: the joint protocol's optimizer steps every module; this order makes each
+#: optimizer's subset adjacent in the ``flat_optim`` buffer
+JOINT_KEYS = ("dis", "enc", "dec")
 
 # torch default weight_decay per optimizer class (applied when the reference
 # omits the kwarg)
@@ -152,15 +172,6 @@ class RankAAETrainer:
     def __init__(self, cfg: TrainConfig, n_train: int, n_val: int, trials: int = 1,
                  device=None):
         cfg.validate()
-        if cfg.protocol != "faithful":
-            raise NotImplementedError(
-                f"protocol {cfg.protocol!r} is not ported yet (ROADMAP queue 1, item 8)")
-        if cfg.activation_dtype != "float32":
-            raise NotImplementedError(
-                "activation_dtype bfloat16 is not ported yet (ROADMAP queue 1, item 9)")
-        if cfg.flat_optim:
-            raise NotImplementedError(
-                "flat_optim is not ported yet (ROADMAP queue 1, item 7)")
         if trials < 1:
             raise ValueError(f"trials must be >= 1, got {trials}")
         self.device = resolve_device(device)
@@ -189,13 +200,63 @@ class RankAAETrainer:
                 kw["base_lr"] = getattr(cfg, ratio_attr) * cfg.lr_base
             self.opts[name] = make_optimizer(cfg.optimizer_name, betas=betas,
                                              weight_decay=wd, **kw)
+        if cfg.protocol == "joint":
+            # one optimizer over every parameter, its lr the reconstruction
+            # ratio's (trainer.py:173-183)
+            kw = {}
+            if cfg.optimizer_name == "AdaBound":
+                kw["base_lr"] = cfg.lr_ratio_Reconn * cfg.lr_base
+            self.opts["joint"] = make_optimizer(cfg.optimizer_name, betas=(0.9, 0.999),
+                                                weight_decay=cfg.weight_decay, **kw)
+        self.flat = FlatParameters({k: self.models[k] for k in JOINT_KEYS}, trials) \
+            if cfg.flat_optim else None
 
     # ------------------------------------------------------------------ #
     # state
     # ------------------------------------------------------------------ #
 
-    def _params(self, name: str) -> List[torch.Tensor]:
-        return [p for key in OPT_SPECS[name][0] for p in self.models[key].parameters()]
+    @staticmethod
+    def _keys(name: str):
+        """The modules optimizer ``name`` steps."""
+        return JOINT_KEYS if name == "joint" else OPT_SPECS[name][0]
+
+    def _leaves(self, keys, of=None) -> List[torch.Tensor]:
+        return [p for key in keys
+                for p in (self.models[key].parameters() if of is None else of[key])]
+
+    def _params(self, name: str, of=None) -> List[torch.Tensor]:
+        """Optimizer ``name``'s parameters: one tensor a parameter, or under
+        ``flat_optim`` one slice of the flat buffer.  With ``of`` from
+        :meth:`_zeros_like_params`, the same part of ``of`` (views)."""
+        if self.flat is not None:
+            return [self.flat.view(self._keys(name), of)]
+        return self._leaves(self._keys(name), of)
+
+    def _zeros_like_params(self):
+        """Zeros laid out as the parameters, read through ``_params(name,
+        of=...)``: a flat buffer's under ``flat_optim``, else a list of
+        tensors per module."""
+        if self.flat is not None:
+            return torch.zeros_like(self.flat.buffer)
+        return {key: [torch.zeros_like(p) for p in self.models[key].parameters()]
+                for key in JOINT_KEYS}
+
+    def _grads(self, name: str, loss: torch.Tensor, retain_graph: bool = False
+               ) -> List[torch.Tensor]:
+        """The gradient of the trials' summed ``loss`` (T,) over optimizer
+        ``name``'s parameters, laid out as ``_params(name)``.  Trials share
+        no parameter, so each gets exactly its own gradient."""
+        leaves = self._leaves(self._keys(name))
+        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True,
+                                    retain_graph=retain_graph)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return grads if self.flat is None else [self.flat.flatten(self._keys(name), grads)]
+
+    def _lr(self, name: str, state: "TrainState") -> torch.Tensor:
+        """Optimizer ``name``'s learning rate per trial (T,), or under
+        ``flat_optim`` per element of its slice."""
+        lr = state.sched[name].lr
+        return lr if self.flat is None else self.flat.lr(lr, self._keys(name))
 
     def _snapshot(self) -> Dict[str, Dict[str, torch.Tensor]]:
         return {k: {n: t.detach().clone() for n, t in m.state_dict().items()}
@@ -230,12 +291,16 @@ class RankAAETrainer:
         for i, gen in enumerate(sampler.generators):
             for key in ("enc", "dec", "dis"):
                 reset_parameters(self.models[key], gen, trial=i)
-        opt = {name: self.opts[name].init(self._params(name)) for name in OPT_SPECS}
+        # joint: one optimizer and one scheduler, at the reconstruction
+        # ratio's lr (trainer.py:245-252); else one a loss
+        lr0 = {"joint": cfg.lr_ratio_Reconn * cfg.lr_base} if cfg.protocol == "joint" else \
+            {name: getattr(cfg, ratio) * cfg.lr_base
+             for name, (_, ratio, _, _) in OPT_SPECS.items()}
+        opt = {name: self.opts[name].init(self._params(name)) for name in lr0}
         scales_t = torch.tensor(scales, device=self.device)
-        sched = {name: plateau_init(torch.tensor(getattr(cfg, ratio) * cfg.lr_base,
-                                                 dtype=torch.float32, device=self.device)
+        sched = {name: plateau_init(torch.tensor(lr, dtype=torch.float32, device=self.device)
                                     * scales_t, self.device)
-                 for name, (_, ratio, _, _) in OPT_SPECS.items()}
+                 for name, lr in lr0.items()}
 
         def full(v, dtype=torch.float32):
             return torch.full((t,), v, dtype=dtype, device=self.device)
@@ -373,12 +438,9 @@ class RankAAETrainer:
 
     def _opt_step(self, name: str, loss: torch.Tensor, state: TrainState) -> None:
         """Gradient of the trials' summed ``loss`` (T,) over the optimizer's
-        parameter subset, then its update (in place).  Trials share no
-        parameter, so each gets exactly its own gradient."""
-        params = self._params(name)
-        grads = torch.autograd.grad(loss.sum(), params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        self.opts[name].update(grads, state.opt[name], params, state.sched[name].lr)
+        parameter subset, then its update (in place)."""
+        self.opts[name].update(self._grads(name, loss), state.opt[name], self._params(name),
+                               self._lr(name, state))
 
     def _label_loss(self, pred, label: int):
         """The discriminator's loss (T,) on ``pred`` against one label for
@@ -419,6 +481,10 @@ class RankAAETrainer:
         sampler = state.sampler if sampler is None else sampler
         for m in self.models.values():
             m.train()
+        if cfg.protocol == "fused":
+            return self._train_batch_fused(state, spec, aux, alpha, epoch, sampler)
+        if cfg.protocol == "joint":
+            return self._train_batch_joint(state, spec, aux, alpha, epoch, sampler)
         t, b = spec.shape[:2]
 
         # input noise (trainer.py:112)
@@ -491,11 +557,19 @@ class RankAAETrainer:
     def _adversarial_step(self, state: TrainState, spec_in, z_real, beta, sampler):
         """The GRL step (``trainer.py:334-373`` in the JAX package): one
         backward trains the discriminator and, reversed, the encoder."""
-        enc, dec, dis = self.models["enc"], self.models["dec"], self.models["dis"]
+        enc, dec = self.models["enc"], self.models["dec"]
         styles = enc(spec_in, sampler=sampler)
         with torch.no_grad():
             # the reference's dead decode (trainer.py:113-114): stats only
             dec(styles, sampler=sampler)
+        dis_loss = self._adversarial_loss(styles, z_real, beta, sampler)
+        self._opt_step("adversarial", dis_loss, state)
+        return dis_loss
+
+    def _adversarial_loss(self, styles, z_real, beta, sampler):
+        """The GRL discriminator's loss (T,) on the prior's draws ``z_real``
+        (real) and ``styles`` (fake)."""
+        dis = self.models["dis"]
         if self.cfg.use_cnn_discriminator:
             # BatchNorms inside: two sequential forwards, so each batch is
             # normalised by its own statistics and the running statistics
@@ -505,13 +579,13 @@ class RankAAETrainer:
             fake_pred = dis(styles, beta, sampler=sampler)
         else:
             # the FC discriminator is BN-free: one (T, B_real + B, nstyle)
-            # forward, the loss taken as two separately averaged halves
+            # forward, the loss taken as two separately averaged halves (the
+            # prior's draws in the styles' dtype, as trainer.py:360)
             n_real = z_real.shape[1]
-            pred = dis(torch.cat([z_real, styles], dim=1), beta, sampler=sampler)
+            pred = dis(torch.cat([z_real.to(styles.dtype), styles], dim=1), beta,
+                       sampler=sampler)
             real_pred, fake_pred = pred[:, :n_real], pred[:, n_real:]
-        dis_loss = self._label_loss(real_pred, 1) + self._label_loss(fake_pred, 0)
-        self._opt_step("adversarial", dis_loss, state)
-        return dis_loss
+        return self._label_loss(real_pred, 1) + self._label_loss(fake_pred, 0)
 
     def _gan_steps(self, state: TrainState, spec_in, z_real, sampler):
         """The non-GRL branch (``trainer.py:374-423`` in the JAX package):
@@ -542,6 +616,112 @@ class RankAAETrainer:
         gen_loss = self._label_loss(dis(enc(spec_in, sampler=sampler), None, sampler=sampler), 1)
         self._opt_step("generator", gen_loss, state)
         return gen_loss
+
+    # ------------------------------------------------------------------ #
+    # the opt-in protocols (trainer.py:518-854 in the JAX package)
+    # ------------------------------------------------------------------ #
+
+    def _batch_draws(self, state: TrainState, spec, sampler):
+        """The noisy input and the prior's draws of a fused or joint batch
+        (keys 0-2 of ``trainer.py:552``): ``spec_in``, ``z_real`` at the
+        configured batch size and ``z_sample`` at the batch's own."""
+        t, b = spec.shape[:2]
+        spec_in = spec + sampler.normal("spec_noise", spec.shape) * state.spec_noise
+        z_real = sampler.normal("z_real", (t, self.cfg.batch_size, self.cfg.nstyle))
+        z_sample = sampler.normal("z_sample", (t, b, self.cfg.nstyle))
+        return spec_in, z_real, z_sample
+
+    def _train_batch_fused(self, state: TrainState, spec, aux, alpha, epoch: int, sampler):
+        """One batch of the fused protocol (``trainer.py:518-752``): one
+        shared forward graph, each loss's gradient over its optimizer's
+        subset from it, and every update computed from the base parameters
+        (a Jacobi sweep, not the faithful protocol's sequential one), then
+        applied once as the sum of the updates' deltas in plan order.
+
+        The graph makes exactly the JAX chain's train-mode forwards, in its
+        order for each module's running statistics (``:709-737``): the
+        encoder on ``spec_in`` then on the decoded prior draws, the decoder
+        on the styles then on ``z_sample``, the discriminator on
+        ``z_real`` and the styles in one pass (GRL, FC discriminator), in
+        two (GRL, CNN), or on ``z_real``, the detached styles and the styles
+        (the D and G losses without GRL)."""
+        cfg = self.cfg
+        enc, dec, dis = self.models["enc"], self.models["dec"], self.models["dis"]
+        t = spec.shape[0]
+        spec_in, z_real, z_sample = self._batch_draws(state, spec, sampler)
+        styles = enc(spec_in, sampler=sampler)
+        spec_out = dec(styles, sampler=sampler)
+        z_recon = enc(dec(z_sample, sampler=sampler), sampler=sampler)
+        losses = {}
+        if cfg.gradient_reversal:
+            losses["adversarial"] = self._adversarial_loss(styles, z_real, self._beta(alpha),
+                                                           sampler)
+        else:
+            real_pred = dis(z_real, None, sampler=sampler)
+            fake_pred = dis(styles.detach(), None, sampler=sampler)
+            losses["discriminator"] = self._label_loss(real_pred, 1) + \
+                self._label_loss(fake_pred, 0)
+            losses["generator"] = self._label_loss(dis(styles, None, sampler=sampler), 1)
+        losses["correlation"] = kendall_constraint(aux, styles[..., : cfg.n_aux],
+                                                   activate=cfg.kendall_activation)
+        losses["reconstruction"] = recon_loss(spec_in, spec_out, scale=cfg.use_flex_spec_target,
+                                              scale_weight=cfg.flex_scale_weight)
+        losses["mutual_info"] = mse(z_recon, z_sample)
+        if epoch < cfg.epoch_stop_smooth:
+            # the decoder alone; after the cut its moments freeze (:693-707)
+            losses["smoothness"] = smoothness_loss(spec_out, GAU_KERNEL_SIZE)
+
+        names = list(losses)
+        delta = self._zeros_like_params()
+        for name in names:
+            grads = self._grads(name, losses[name], retain_graph=name != names[-1])
+            with torch.no_grad():
+                base = self._params(name)
+                new = [p.detach().clone() for p in base]
+                self.opts[name].update(grads, state.opt[name], new, self._lr(name, state))
+                for d, n, p in zip(self._params(name, of=delta), new, base):
+                    d.add_(n.sub_(p))           # delta += (new - base), :673-689
+        with torch.no_grad():
+            for p, d in zip(self._params("joint"), self._params("joint", of=delta)):
+                p.add_(d)                       # :739
+
+        zero = torch.zeros(t, device=self.device)
+        return state, {
+            "dis": losses.get("adversarial", losses.get("discriminator")).detach(),
+            "gen": losses.get("generator", zero).detach(),
+            "aux": losses["correlation"].detach(),
+            "recon": losses["reconstruction"].detach(),
+            "smooth": losses.get("smoothness", zero).detach(),
+            "mi": losses["mutual_info"].detach(),
+        }
+
+    def _train_batch_joint(self, state: TrainState, spec, aux, alpha, epoch: int, sampler):
+        """One batch of the joint protocol (``trainer.py:758-854``): the
+        reference's learning-rate ratios over the reconstruction ratio as
+        loss weights, one backward of the weighted total and one update of
+        the one optimizer over every parameter.  GRL only (the config
+        refuses joint without it).  The forwards are the fused protocol's
+        chain with the discriminator's GRL pass."""
+        cfg = self.cfg
+        enc, dec = self.models["enc"], self.models["dec"]
+        t = spec.shape[0]
+        spec_in, z_real, z_sample = self._batch_draws(state, spec, sampler)
+        r = cfg.lr_ratio_Reconn
+        sm_on = float(epoch < cfg.epoch_stop_smooth)
+        styles = enc(spec_in, sampler=sampler)
+        spec_out = dec(styles, sampler=sampler)
+        adv = self._adversarial_loss(styles, z_real, self._beta(alpha), sampler)
+        corr = kendall_constraint(aux, styles[..., : cfg.n_aux], activate=cfg.kendall_activation)
+        rec = recon_loss(spec_in, spec_out, scale=cfg.use_flex_spec_target,
+                         scale_weight=cfg.flex_scale_weight)
+        sm = smoothness_loss(spec_out, GAU_KERNEL_SIZE)
+        mi = mse(enc(dec(z_sample, sampler=sampler), sampler=sampler), z_sample)
+        total = (cfg.lr_ratio_dis / r * adv + cfg.lr_ratio_Corr / r * corr + rec
+                 + cfg.lr_ratio_Mutual / r * mi + sm_on * (cfg.lr_ratio_Smooth / r) * sm)
+        self._opt_step("joint", total, state)
+        return state, {"dis": adv.detach(), "gen": torch.zeros(t, device=self.device),
+                       "aux": corr.detach(), "recon": rec.detach(),
+                       "smooth": (sm_on * sm).detach(), "mi": mi.detach()}
 
     # ------------------------------------------------------------------ #
     # validation (reference trainer.py:206-304)
@@ -653,11 +833,12 @@ class RankAAETrainer:
         state.best_recon_epoch = torch.where(is_best_recon, epoch_t, state.best_recon_epoch)
 
         # plateau schedulers step on the combined metric (trainer.py:303-304);
-        # sch_recon_metric="val_recon" steps the reconstruction one on val recon
+        # sch_recon_metric="val_recon" steps the reconstruction one (the
+        # joint one under protocol joint) on val recon
         state.sched = {
             name: plateau_update(
                 sched,
-                val_losses["recon"] if (name == "reconstruction"
+                val_losses["recon"] if (name in ("reconstruction", "joint")
                                         and cfg.sch_recon_metric == "val_recon")
                 else combined,
                 cfg.sch_factor, cfg.sch_patience)
@@ -676,7 +857,7 @@ class RankAAETrainer:
             "val_clamp_frac": val_losses["clamp_frac"],
             "metrics": metrics,
             "combined": combined,
-            "lr_recon": state.sched["reconstruction"].lr,
+            "lr_recon": state.sched.get("reconstruction", state.sched.get("joint")).lr,
         }
         return state, log
 

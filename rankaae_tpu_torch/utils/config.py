@@ -70,10 +70,9 @@ class TrainConfig:
     configures both.  Field names match the reference YAML schema
     key-for-key so shipped configs run unmodified.  The comments below
     describe each knob as the JAX package uses it; the PyTorch trainer
-    ignores the knobs that only shape an XLA program (``rng_impl``,
-    ``scan_unroll``, ``remat``) and raises ``NotImplementedError`` for the
-    ones this package does not implement yet (``activation_dtype:
-    bfloat16``, ``flat_optim``, the ``fused``/``joint`` protocols).
+    implements every one of them but the knobs that only shape an XLA
+    program (``rng_impl``, ``scan_unroll``) and ``remat``, which it
+    ignores.
     """
 
     # system

@@ -16,7 +16,8 @@
 * The package rules: nothing of ``jax``, ``rankaae_tpu`` or ``msgpack`` is
   imported (the runner and ``train_sc`` included), the entry points
   (training, recalibration, serving and the report) do not fall back to
-  the CPU, and the trainer refuses the paths it does not implement yet.
+  the CPU; every trainer option builds (the fused and joint protocols,
+  ``flat_optim``, bfloat16), and joint without GRL is refused.
 """
 import ast
 import os
@@ -39,7 +40,7 @@ from rankaae_tpu_torch.models.registry import build_autoencoder
 from rankaae_tpu_torch.report.generate_report import main as generate_report_main
 from rankaae_tpu_torch.serve import BatchedInference, main as serve_main
 from rankaae_tpu_torch.train.facade import Trainer
-from rankaae_tpu_torch.train.trainer import RankAAETrainer
+from rankaae_tpu_torch.train.trainer import OPT_SPECS, RankAAETrainer
 from rankaae_tpu_torch.utils.checkpoint import save_model_bundle
 from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
 from rankaae_tpu_torch.utils.weights import to_jax
@@ -130,11 +131,20 @@ def test_entry_points_default_to_cuda(synthetic_csv, monkeypatch, tmp_path):
         generate_report_main(["-c", "cfg.yaml", "-w", str(tmp_path), "--no-figures"])
 
 
-def test_unported_paths_raise():
-    for kw, item in (({"protocol": "joint"}, "item 8"), ({"protocol": "fused"}, "item 8"),
-                     ({"flat_optim": True}, "item 7"), ({"activation_dtype": "bfloat16"}, "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            RankAAETrainer(TrainConfig(**{**CFG, **kw}), n_train=B, n_val=N_VAL, device="cpu")
+@pytest.mark.parametrize("kw", [{"protocol": "joint"}, {"protocol": "fused"},
+                                {"flat_optim": True}, {"activation_dtype": "bfloat16"}],
+                         ids=["joint", "fused", "flat_optim", "bfloat16"])
+def test_every_option_builds(kw):
+    tr = RankAAETrainer(TrainConfig(**{**CFG, **kw}), n_train=B, n_val=N_VAL, device="cpu")
+    state = tr.init_state(0)
+    assert sorted(state.opt) == (["joint"] if kw.get("protocol") == "joint" else
+                                 sorted(OPT_SPECS))
+
+
+def test_joint_without_grl_is_refused():
+    with pytest.raises(ValueError, match="requires gradient_reversal"):
+        RankAAETrainer(TrainConfig(**{**CFG, "protocol": "joint", "gradient_reversal": False}),
+                       n_train=B, n_val=N_VAL, device="cpu")
 
 
 def test_package_imports_nothing_of_jax():

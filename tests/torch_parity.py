@@ -20,7 +20,10 @@ amplifies the rounding its first steps leave (a Kendall pair that flips,
 the mutual-info step) by an amount that depends on the order of the CPU's
 sums, so :func:`compare_batch_by_steps` holds the whole batch to the
 larger of :data:`BATCH_ATOL` and twice its 1e-7 perturbation spread, and
-takes each step alone from the JAX package's own inputs to it.
+takes each step alone from the JAX package's own inputs to it.  The fused
+and joint protocols take no steps in sequence: :func:`compare_batch` holds
+their whole batch alone, its three draws keys 0-2 of ``split(rng, 9)``
+(:func:`batch_draws`).
 """
 import inspect
 import json
@@ -267,6 +270,33 @@ def compare_whole_batch(run_jax, jstate, port_batch, what=""):
     return records, new_jstate, jlosses, tlosses
 
 
+def compare_batch(jtr, jstate, ttr, tstate, spec, aux, alpha=0.3, epoch=0, seed=42,
+                  what=""):
+    """One whole batch on both stacks from ``jstate``'s weights, from second
+    moments of :data:`NU0` (:func:`compare_whole_batch`: the six losses
+    and every leaf within the larger of :data:`BATCH_ATOL` and twice the
+    batch's 1e-7 perturbation spread).  For the protocols that take no
+    steps in sequence (fused, joint), where there is no step to take
+    alone.  Returns the JAX batch's new state and losses and the port's
+    losses."""
+    jstate = _with_nu0(jstate, tstate)
+    rng = jax.random.PRNGKey(seed)
+    step = jax.jit(jtr._train_batch)
+    args = (jnp.asarray(spec), jnp.asarray(aux), jnp.float32(alpha), jnp.int32(epoch), rng)
+
+    def run_jax(state):
+        new_state, losses = step(state, *args)
+        return {}, new_state, losses
+
+    def port_batch(state):
+        return _port_batch(jtr, state, ttr, tstate if state is jstate else ttr.init_state(0),
+                           spec, aux, alpha, epoch, rng)
+
+    _, new_jstate, jlosses, tlosses = compare_whole_batch(
+        run_jax, jstate, port_batch, what or f"{jtr.cfg.protocol}, {jtr.cfg.ae_form}")
+    return new_jstate, jlosses, tlosses
+
+
 def compare_batch_by_steps(jtr, jstate, ttr, tstate, spec, aux, alpha=0.3, epoch=0, seed=42):
     """One batch on both stacks, whole and each step from identical inputs.
 
@@ -336,12 +366,17 @@ def compare_batch_by_steps(jtr, jstate, ttr, tstate, spec, aux, alpha=0.3, epoch
 
 
 def batch_draws(cfg, rng, b):
-    """The draws of one JAX batch of ``b`` rows from the batch key ``rng``
-    (``trainer.py:315-319,335,387,462``), each with a trial axis of 1."""
-    keys = jax.random.split(rng, 17)
+    """The draws of one JAX batch of ``b`` rows from the batch key ``rng``,
+    each with a trial axis of 1: keys 0, 1 and 12 of ``split(rng, 17)``
+    under the faithful protocol (``trainer.py:315-319,335,387,462``), keys
+    0, 1 and 2 of ``split(rng, 9)`` under fused and joint (``:552-558``,
+    ``:787-791``)."""
+    faithful = cfg.protocol == "faithful"
+    keys = jax.random.split(rng, 17 if faithful else 9)
     return {"spec_noise": np.asarray(jax.random.normal(keys[0], (b, cfg.dim_in)))[None],
             "z_real": np.asarray(jax.random.normal(keys[1], (cfg.batch_size, cfg.nstyle)))[None],
-            "z_sample": np.asarray(jax.random.normal(keys[12], (b, cfg.nstyle)))[None]}
+            "z_sample": np.asarray(jax.random.normal(keys[12 if faithful else 2],
+                                                     (b, cfg.nstyle)))[None]}
 
 
 def validate_draws(cfg, rng, n_val):
