@@ -129,7 +129,28 @@ Phases (any failure exits non-zero and prints no result):
    bfloat16 at FC T 1, FC T 32 and normal T 8, each through one
    ``tools/profile_epoch.py`` call: the median spectra/s per GPU of three
    steady epochs and a profiled epoch's launches, device time (summed and
-   busy) and idle share.
+   busy) and idle share;
+12. the rest of the JAX package — (a) ``remat``: ``train_sc`` of the
+   normal form and of the compact form with the CNN discriminator (the
+   config's 8 trials, EPOCHS epochs) with ``remat: true`` and without,
+   under cuDNN's deterministic algorithms: every ``losses.csv`` and bundle
+   bit-identical (where not, held to phase 4's tolerances and printed), K1
+   and K2 as phase 3's one-trial run, K3 once a trial and fused block in
+   each validation's two decodes; then the normal form's peak device memory
+   and median steady-epoch seconds at T 8 and 32, with and without; (b)
+   trials over ranks: ``train_sc`` of the config's 8 FC trials at
+   ``INDEPENDENCE_LR`` over 2 ranks on the one card (``python -m
+   torch.distributed.run``, each rank ``--device cuda:0``): the tree file
+   for file as 8a's, every ``losses.csv`` and bundle bit-identical to one
+   process training the same stacks (waves of 4), the training losses
+   within phase 4's loss tolerance (8b's) of one process in one wave (whose
+   batched products sum in another order; the largest leaf difference
+   printed), each rank's K1 and K2 as phase 3's one-trial run, and the wall
+   times beside 8a's; (c) the trial x
+   dp layout (2 trials at dp 2, one rank a card, NCCL) against dp 1, only
+   where the machine has two cards, else one line saying why not; (d) the
+   native CSV loader against pandas on the 7,000-row CSV: equal, and the
+   median time of each.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
@@ -157,7 +178,11 @@ model's styles and reconstructions within 1e-4, as phase 6; 11b phase
 relative make on the CPU (measured in the run) where a difference exceeds
 them; 11c bit-identical; 11d serving 1e-4 as phase 6, and the bfloat16
 batch twice the CPU spread of 4 perturbations of the weights by 2^-9
-relative (half a bfloat16 unit), never under phase 4's tolerances.
+relative (half a bfloat16 unit), never under phase 4's tolerances; 12a
+bit-identical, or phase 4's tolerances; 12b bit-identical to the same
+stacks, and phase 4's loss tolerance on the training losses against one
+wave (8b's); 12c
+phase 4's loss tolerance on every log; 12d exact.
 """
 from __future__ import annotations
 
@@ -788,7 +813,8 @@ THROUGHPUT_TRIALS = (1, 8, 32)
 def train_trials(torch, np, kc, cfg_path, tmp, card, expect):
     """Phase 8a: ``train_sc`` on the card with the config's trials, the
     artifact tree and its bundles; returns the Kendall launches, which must
-    equal ``expect`` (phase 3's one-trial run of the same epochs)."""
+    equal ``expect`` (phase 3's one-trial run of the same epochs), and the
+    run's wall seconds."""
     import yaml
 
     from rankaae_tpu_torch.cli import train_sc
@@ -841,7 +867,7 @@ def train_trials(torch, np, kc, cfg_path, tmp, card, expect):
           f"epochs, in {wall:.2f} s wall (data load, training, {trials * 4} bundles); tree "
           f"and bundles checked; K1/K2 launches {launches} (expected {expect}: one launch "
           f"carries all {trials} trials) [{card}]")
-    return launches
+    return launches, wall
 
 
 TRAIN_LOSSES = ("train_dis", "train_gen", "train_aux", "train_recon", "train_smooth",
@@ -989,17 +1015,20 @@ def run_train_sc(torch, kc, fb, work, device, *flags):
                                       "fused_block": fb.launches}
 
 
-def bundle_diff(np, a, b):
-    """Largest |difference| over the leaves of two bundles."""
+def bundle_diff(np, a, b, where=False):
+    """Largest |difference| over the leaves of two bundles (with
+    ``where``, and the leaf's path)."""
     from rankaae_tpu_torch.utils.checkpoint import load_model_bundle
 
-    def leaves(tree):
-        return [x for v in tree.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+    def leaves(tree, path=""):
+        return [x for k, v in tree.items() for x in (
+            leaves(v, f"{path}/{k}") if isinstance(v, dict) else [(f"{path}/{k}", v)])]
 
     pa, sa, _, _ = load_model_bundle(a)
     pb, sb, _, _ = load_model_bundle(b)
-    return max(float(np.max(np.abs(x - y))) for x, y in zip(leaves({"p": pa, "s": sa}),
-                                                             leaves({"p": pb, "s": sb})))
+    d, leaf = max((float(np.max(np.abs(x - y))), name) for (name, x), (_, y) in zip(
+        leaves({"params": pa, "stats": sa}), leaves({"params": pb, "stats": sb})))
+    return (d, leaf) if where else d
 
 
 def resume_on_card(torch, np, kc, fb, root, csv, cfg_path, card, device="cuda"):
@@ -1677,6 +1706,322 @@ def option_profiles(torch, card, splits):
     return rows
 
 
+# phase 12: remat (12a), trials over two ranks (12b), the trial x dp layout
+# (12c) and the native CSV loader (12d)
+REMAT_RUNS = (("normal", {"ae_form": "normal"}),
+              ("compact + CNN", {"ae_form": "compact", "use_cnn_discriminator": True}))
+REMAT_FUSED_BLOCKS = {"normal": NORMAL_FUSED_BLOCKS, "compact": 1}
+REMAT_TRIALS = (8, 32)
+REMAT_EPOCHS = 3                 # a warm-up epoch, then the median of the steady ones
+RANKS = 2
+LOADER_READS = 5
+
+
+def remat_trials(torch, np, kc, fb, root, csv, cfg_path, card, expect):
+    """Phase 12a: ``train_sc`` of the normal form and of the compact form
+    with the CNN discriminator (the config's trials, EPOCHS epochs) with
+    ``remat`` and without, under cuDNN's deterministic algorithms: every
+    ``losses.csv`` and bundle bit-identical (or, where not, held to phase
+    4's tolerances and printed), K1 and K2 launched as phase 3's one-trial
+    run and K3 once a trial and fused block in each validation's two
+    decodes.  Returns the launches."""
+    from rankaae_tpu_torch.utils.config import Parameters
+
+    trials = Parameters.from_yaml(cfg_path).get("trials")
+    total = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, overrides in REMAT_RUNS:
+            works = {}
+            for remat in (False, True):
+                works[remat] = work_dir(root, f"remat_{overrides['ae_form']}_{remat}", csv,
+                                        cfg_path, remat=remat, max_epoch=EPOCHS, **overrides)
+                sec, launches = run_train_sc(torch, kc, fb, works[remat], "cuda")
+                assert_tickets_clear(kc, f"after the {label} remat {remat} train_sc")
+                want = {**expect, "fused_block": trials * EPOCHS * 2
+                        * REMAT_FUSED_BLOCKS[overrides["ae_form"]]}
+                assert launches == want, (label, remat, launches, want)
+                check_tree(np, works[remat], trials, overrides["ae_form"], 256)
+                add_launches(total, launches)
+                print(f"12a train_sc: {label}, remat {remat}, {trials} trials, {EPOCHS} "
+                      f"epochs, {sec:.2f} s wall, launches {launches} (expected {want}) "
+                      f"[{card}]")
+            diffs = tree_diff(np, works[False], works[True])
+            if not diffs:
+                print(f"12a: {label} with remat bit-identical to without (every losses.csv "
+                      f"and bundle of {trials} trials, cuDNN deterministic) [{card}]")
+                continue
+            print(f"12a: {label} with remat against without, NOT bit-identical: largest "
+                  f"differences {json.dumps(diffs)}; held to phase 4's tolerances [{card}]")
+            for name, d in diffs.items():
+                assert d <= (PARITY_ATOL if name.endswith(".csv") else LEAF_ATOL), (name, d)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return total
+
+
+def remat_cost(torch, cfg, splits, card):
+    """Phase 12a: peak device memory (``max_memory_allocated`` from just
+    before the first epoch) and the median steady-epoch seconds of the
+    normal form at each T of REMAT_TRIALS, with ``remat`` and without."""
+    from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+
+    data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
+    rows = {}
+    for trials in REMAT_TRIALS:
+        for remat in (False, True):
+            tr = RankAAETrainer(cfg.replace(ae_form="normal", remat=remat),
+                                n_train=len(splits[0]), n_val=len(splits[2]), trials=trials,
+                                device="cuda")
+            state = tr.init_state(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            seconds = []
+            for epoch in range(REMAT_EPOCHS):
+                t0 = time.perf_counter()
+                state, log = tr.epoch_step(state, epoch, data)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            assert torch.isfinite(log["metrics"]).all(), (trials, remat)
+            steady = statistics.median(seconds[1:])
+            rows[f"T {trials}, remat {remat}"] = {
+                "peak_MiB": torch.cuda.max_memory_allocated() / 2 ** 20,
+                "epoch_s": [round(x, 4) for x in seconds], "steady_median_s": steady,
+                "spectra_per_s": trials * tr.n_train / steady}
+            del tr, state, log
+            torch.cuda.empty_cache()
+    print("12a remat cost, normal form at full width, B 1024: " + json.dumps(rows)
+          + f" [{card}]")
+    return rows
+
+
+def job_files(root):
+    """The relative paths of a ``train_sc`` tree's artifacts: its message
+    file and every file under ``training/``, checkpoint names by pattern
+    (they hold each run's best loss)."""
+    out = ["main_process_message.txt"]
+    for d, _, names in os.walk(os.path.join(root, "training")):
+        for name in names:
+            rel = os.path.relpath(os.path.join(d, name), root)
+            out.append(re.sub(r"epoch_\d{6}_loss_[^/]+?\.mpk", "epoch_*_loss_*.mpk", rel))
+    return sorted(out)
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 12b (``chip_smoke.py --train-sc-rank WORK OUT``
+    under torchrun): ``train_sc`` of WORK on ``cuda:0`` (the ranks share
+    the card), then its wall seconds and launch counts into OUT."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from rankaae_tpu_torch.cli import train_sc
+    from rankaae_tpu_torch.ops import fused_block_cuda as fb
+    from rankaae_tpu_torch.ops import kendall_cuda as kc
+
+    work, out = argv
+    kc.build()
+    fb.build()
+    kc.fwd_launches = kc.bwd_launches = fb.launches = 0
+    t0 = time.perf_counter()
+    train_sc.main(["-c", "cfg.yaml", "-w", work, "--device", "cuda:0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(out, f"rank_{rank}.json"), "w") as f:
+        json.dump({"wall": wall, "launches": {"kendall_pair_sums": kc.fwd_launches,
+                                              "kendall_grad_rows": kc.bwd_launches,
+                                              "fused_block": fb.launches}}, f)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def trials_over_ranks(torch, np, kc, fb, root, csv, cfg_path, card, expect, work_8a, wall_8a):
+    """Phase 12b: ``train_sc`` of the config's FC trials at INDEPENDENCE_LR
+    (EPOCHS epochs) over RANKS ranks on the one card (``python -m
+    torch.distributed.run``): the same tree file for file as 8a's; every
+    ``losses.csv`` and bundle bit-identical to one process training the
+    same stacks (waves of trials / RANKS: each rank stacks its block so);
+    against one process in one wave (T 8 stacked, whose batched products
+    may sum in another order) the training losses within phase 4's loss
+    tolerance, 8b's, and the largest leaf difference printed; each rank
+    launching K1 and K2 as phase 3's one-trial run.  Returns the launches
+    of the three runs."""
+    import functools
+
+    from rankaae_tpu_torch.cli import train_sc
+    from rankaae_tpu_torch.utils.config import Parameters
+
+    trials = Parameters.from_yaml(cfg_path).get("trials")
+    per_rank = -(-trials // RANKS)
+    total = {}
+    runs = {}
+    for name, resident in (("one wave", None), (f"waves of {per_rank}", per_rank)):
+        runs[name] = work_dir(root, f"ranks_{resident}", csv, cfg_path, lr_base=INDEPENDENCE_LR,
+                              max_epoch=EPOCHS)
+        real = train_sc.run_trials
+        if resident:
+            train_sc.run_trials = functools.partial(real, max_resident=resident)
+        try:
+            sec, launches = run_train_sc(torch, kc, fb, runs[name], "cuda")
+        finally:
+            train_sc.run_trials = real
+        waves = -(-trials // (resident or trials))
+        assert launches == {**{k: waves * v for k, v in expect.items()}, "fused_block": 0}, \
+            (name, launches)
+        add_launches(total, launches)
+        runs[name] = (runs[name], sec)
+    two = work_dir(root, "ranks_two", csv, cfg_path, lr_base=INDEPENDENCE_LR, max_epoch=EPOCHS)
+    out = os.path.join(root, "ranks_out")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                          "--nproc-per-node", str(RANKS), "--master-port", str(free_port()),
+                          os.path.join(HERE, "chip_smoke.py"), "--train-sc-rank", two, out],
+                         capture_output=True, text=True, timeout=600, cwd=HERE)
+    wall_two = time.perf_counter() - t0
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    ranks = []
+    for rank in range(RANKS):
+        with open(os.path.join(out, f"rank_{rank}.json")) as f:
+            ranks.append(json.load(f))
+        assert ranks[-1]["launches"] == {**expect, "fused_block": 0}, (rank, ranks[-1])
+        add_launches(total, ranks[-1]["launches"])
+    (one, sec_one), (stacks, sec_stacks) = runs.values()
+    tree = job_files(two)
+    assert tree == job_files(one) == job_files(stacks) == job_files(work_8a), \
+        (tree, job_files(work_8a))
+    assert not os.path.exists(os.path.join(two, "train_state")), "rank 1 wrote files"
+    check_tree(np, two, trials, "FC", 256)
+    same = tree_diff(np, stacks, two)
+    worst = {"train": 0.0, "val": 0.0, "leaf": 0.0, "leaf_at": None}
+    for job in sorted(os.listdir(os.path.join(one, "training"))):
+        a, b = (np.genfromtxt(os.path.join(w, "training", job, "losses.csv"), delimiter=",",
+                              skip_header=1, usecols=range(13), ndmin=2) for w in (one, two))
+        assert a.shape == b.shape, job
+        d = np.abs(a - b).max(axis=0)
+        worst["train"] = max(worst["train"], float(d[1::2].max()))    # Train_* columns
+        worst["val"] = max(worst["val"], float(d[2::2].max()))
+        for name in BUNDLES:
+            d, leaf = bundle_diff(np, os.path.join(one, "training", job, name),
+                                  os.path.join(two, "training", job, name), where=True)
+            if d >= worst["leaf"]:
+                worst["leaf"], worst["leaf_at"] = d, f"{job}/{name}{leaf}"
+    print(f"12b train_sc over {RANKS} ranks on one card: {trials} FC trials, lr_base "
+          f"{INDEPENDENCE_LR}, {EPOCHS} epochs: command {wall_two:.2f} s wall (each rank's "
+          f"train_sc {[round(r['wall'], 2) for r in ranks]} s, in a fresh process) against "
+          f"one process {sec_one:.2f} s (one wave) and {sec_stacks:.2f} s (waves of "
+          f"{per_rank}), and 8a's {wall_8a:.2f} s (its first train_sc); tree equal to 8a's; "
+          f"against the waves of {per_rank}: "
+          + ("bit-identical" if not same else f"differences {json.dumps(same)}")
+          + f"; against one wave: largest differences {json.dumps(worst)} (the training "
+          f"losses held to {PARITY_ATOL}); launches per rank "
+          f"{[r['launches'] for r in ranks]} [{card}]")
+    assert not same, same
+    assert worst["train"] <= PARITY_ATOL, worst
+    return total
+
+
+def dp_main(argv) -> int:
+    """One rank of phase 12c (``chip_smoke.py --dp-rank CFG DATA OUT``
+    under torchrun, one card a rank): ``run_trials`` of 2 trials at dp 2
+    (the train rows sharded over the two cards, NCCL), its logs into OUT."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from rankaae_tpu_torch.parallel import multihost
+    from rankaae_tpu_torch.parallel.trials import run_trials
+    from rankaae_tpu_torch.train.trainer import TrialData
+    from rankaae_tpu_torch.utils.config import TrainConfig
+
+    cfg_json, data_npz, out = argv
+    multihost.initialize()
+    with open(cfg_json) as f:
+        cfg = TrainConfig(**json.load(f))
+    with np.load(data_npz) as z:
+        data = TrialData(*(torch.from_numpy(z[k]) for k in ("a", "b", "c", "d")))
+    res = run_trials(cfg, data, n_trials=2, device=multihost.rank_device(), dp=2)
+    rank = multihost.world()[0]
+    np.savez(os.path.join(out, f"dp_rank_{rank}.npz"), **res.logs)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_layout(torch, np, root, cfg, splits, card):
+    """Phase 12c: where the machine has two cards, 2 trials at dp 2 (one
+    rank a card, the train rows sharded, NCCL) against one process at dp 1:
+    every log within phase 4's loss tolerance.  With one card it does not
+    run: NCCL refuses two ranks on one GPU."""
+    from rankaae_tpu_torch.parallel.trials import run_trials
+    from rankaae_tpu_torch.train.trainer import TrialData
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"12c: the trial x dp layout did not run: it needs two cards (NCCL refuses two "
+              f"ranks on one GPU) and this machine has {n}; the CPU test "
+              f"tests/test_torch_multihost.py holds it with gloo [{card}]")
+        return
+    import dataclasses
+
+    dcfg = cfg.replace(max_epoch=2)
+    ref = run_trials(dcfg, TrialData(*(torch.from_numpy(a) for a in splits)), n_trials=2,
+                     device="cuda")
+    cfg_json, data_npz = os.path.join(root, "dp_cfg.json"), os.path.join(root, "dp_data.npz")
+    with open(cfg_json, "w") as f:
+        json.dump(dataclasses.asdict(dcfg), f)
+    np.savez(data_npz, a=splits[0], b=splits[1], c=splits[2], d=splits[3])
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                          "--nproc-per-node", "2", "--master-port", str(free_port()),
+                          os.path.join(HERE, "chip_smoke.py"), "--dp-rank", cfg_json, data_npz,
+                          root], capture_output=True, text=True, timeout=600, cwd=HERE)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    worst = 0.0
+    for rank in range(2):
+        with np.load(os.path.join(root, f"dp_rank_{rank}.npz")) as z:
+            for k in z.files:
+                worst = max(worst, float(np.abs(z[k] - ref.logs[k]).max()))
+    print(f"12c: 2 trials at dp 2 over two cards (train rows sharded, NCCL) against dp 1: "
+          f"largest log difference {worst:.3g} (held to {PARITY_ATOL}) [{card}]")
+    assert worst <= PARITY_ATOL, worst
+
+
+def loader_times(np, csv, card):
+    """Phase 12d: the native loader against pandas on the 7,000-row CSV:
+    every float, column and index entry equal; the median of LOADER_READS
+    reads of each (after one untimed read: the native library is built or
+    loaded, the file cached)."""
+    from rankaae_tpu_torch.data import native
+    from rankaae_tpu_torch.data.dataset import read_csv
+
+    t0 = time.perf_counter()
+    native.load()
+    build = time.perf_counter() - t0
+    out, times = {}, {}
+    for engine in ("native", "pandas"):
+        out[engine] = read_csv(csv, engine=engine)
+        times[engine] = []
+        for _ in range(LOADER_READS):
+            t0 = time.perf_counter()
+            read_csv(csv, engine=engine)
+            times[engine].append(time.perf_counter() - t0)
+    (cn, dn, inn), (cp, dp_, ip) = out["native"], out["pandas"]
+    assert cn == cp and inn == ip and dn.dtype == dp_.dtype and np.array_equal(dn, dp_)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"12d loader: {dn.shape[0]} rows x {dn.shape[1]} columns, native equal to pandas "
+          f"(every float, column and index entry); median of {LOADER_READS} reads: native "
+          f"{med['native'] * 1e3:.2f} ms, pandas {med['pandas'] * 1e3:.2f} ms "
+          f"({med['pandas'] / med['native']:.2f}x); build or load of the native library "
+          f"{build:.2f} s [{card}]")
+    return med
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1810,7 +2155,7 @@ def main() -> int:
     t0 = time.perf_counter()
     trials_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_trials_")   # 9c reports it
     tmp8 = trials_dir.name
-    trial_launches = train_trials(torch, np, kc, cfg_path, tmp8, card, expect)
+    trial_launches, wall_8a = train_trials(torch, np, kc, cfg_path, tmp8, card, expect)
     print(f"8a: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
@@ -1942,17 +2287,34 @@ def main() -> int:
         print(f"11e: {time.perf_counter() - t0:.1f} s; phases 1-11: "
               f"{time.perf_counter() - t_start:.1f} s")
 
+        # ---- 12. remat, trials over ranks, the dp layout, the loader ---- #
+        t0 = time.perf_counter()
+        remat_launches = remat_trials(torch, np, kc, fb, tmp9, csv8, cfg_path, card, expect)
+        remat_cost(torch, cfg, splits, card)
+        print(f"12a: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        add_launches(remat_launches, trials_over_ranks(torch, np, kc, fb, tmp9, csv8, cfg_path,
+                                                       card, expect, tmp8, wall_8a))
+        print(f"12b: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dp_layout(torch, np, tmp9, cfg, splits, card)
+        loader_times(np, csv8, card)
+        print(f"12c, 12d: {time.perf_counter() - t0:.1f} s; phases 1-12: "
+              f"{time.perf_counter() - t_start:.1f} s")
+
     for name in ("kendall_pair_sums", "kendall_grad_rows"):
         launches[name] += conv_launches[name] + trial_launches[name] + recal_launches[name] \
             + sum(run[1][name] for run in resume_runs.values()) + normal_launches[name] \
-            + qved_launches[name] + option_launches[name]
+            + qved_launches[name] + option_launches[name] + remat_launches[name]
     k3_launches += conv_launches["fused_block"] + conv_launches["fused_block_serve"] \
         + recal_launches["fused_block"] + sum(report_k3.values()) \
-        + normal_launches["fused_block"] + option_launches["fused_block"]
+        + normal_launches["fused_block"] + option_launches["fused_block"] \
+        + remat_launches["fused_block"]
     print(f"main-path launches: K1 {launches['kendall_pair_sums']}, K2 "
-          f"{launches['kendall_grad_rows']} (phase 3, 7a, 8a, 9a, 9b, 10a, 10c, 11a, 11c and "
-          f"11d training), K3 {k3_launches} (phase 6 CLI, 7a training and CLI, 9b training "
-          f"and amplitude gains, 9c reports, 10a, 11a, 11c and 11d training, 11d CLI)")
+          f"{launches['kendall_grad_rows']} (phase 3, 7a, 8a, 9a, 9b, 10a, 10c, 11a, 11c, "
+          f"11d, 12a and 12b training), K3 {k3_launches} (phase 6 CLI, 7a training and CLI, "
+          f"9b training and amplitude gains, 9c reports, 10a, 11a, 11c, 11d and 12a training, "
+          f"11d CLI)")
 
     rows = []
     for name, line in (("kendall_pair_sums", 49), ("kendall_grad_rows", 91)):
@@ -1978,7 +2340,7 @@ def main() -> int:
           "or their gradient rows, nor the fused EncodingBlock (two convs, BNs, PReLUs, "
           "residual and excitation MLP); K3's row is at the serving shape C 4, B 1024; "
           "launches are the main paths' (phases 3, 6, 7a, 8a, 9a, 9b, 9c, 10a, 10c, 11a, "
-          "11c and 11d)")
+          "11c, 11d, 12a and 12b)")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1988,4 +2350,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-sc-rank"]:        # one rank of phase 12b
+        sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dp-rank"]:              # one rank of phase 12c
+        sys.exit(dp_main(sys.argv[2:]))
     sys.exit(main())

@@ -6,8 +6,9 @@
         [--debug-nans] [--profile-dir DIR]
 
 Reads ``cfg.yaml`` (relative to the work dir) and its ``data_file``, trains
-``trials`` trials of it at once on one device (``parallel/trials.py``), and
-writes the JAX CLI's artifact tree:
+``trials`` trials of it at once on one device (``parallel/trials.py``), or
+split over several processes (below), and writes the JAX CLI's artifact
+tree:
 
     work_dir/main_process_message.txt
     work_dir/training/job_<i>/messages.txt, losses.csv,
@@ -34,25 +35,42 @@ before any bundle is written, and ``amp_recalibrate: true`` writes each
 model's output gain into its manifest as ``amp_gain``
 (``models/recalibrate.py``).  ``--device`` defaults to ``cuda``, and the
 command raises without a CUDA device unless it is ``cpu``.
+
+Several processes, one GPU each::
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m rankaae_tpu_torch.cli.train_sc -c cfg.yaml -w work_dir
+
+Each rank joins the process group from torchrun's environment
+(``parallel/multihost.py``), trains a contiguous block of the trials on
+``cuda:LOCAL_RANK`` (or on the ``--device`` it is given: two ranks may
+share one card), and every rank gets every trial's results; rank 0 writes
+the whole tree above, file for file as one process would.  The other ranks
+write nothing outside their checkpoint subdirectory
+(``train_state/rank_<r:03d>``): with ``--checkpoint-every`` their
+segments' ``losses.csv`` rows and ``checkpoints/`` bundles go there, and
+rank 0 writes them into the tree when the run ends.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import logging
 import os
 import signal
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rankaae_tpu_torch.data.dataset import load_split_arrays
 from rankaae_tpu_torch.models.recalibrate import amplitude_gain, recalibrate_batch_stats
+from rankaae_tpu_torch.parallel import multihost
 from rankaae_tpu_torch.parallel.trials import SegmentBest, TrialResults, run_trials
 from rankaae_tpu_torch.train.trainer import TrialData
 from rankaae_tpu_torch.utils.checkpoint import save_model_bundle
 from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
-from rankaae_tpu_torch.utils.device import resolve_device
 from rankaae_tpu_torch.utils.logging import append_losses_csv, create_logger, write_losses_csv
 
 
@@ -94,15 +112,34 @@ def _segment_writer(work_dir: str, cfg: TrainConfig):
     return on_segment
 
 
+def _staged_files(root: str) -> dict:
+    """Every file under ``root/training`` as {path relative to root: bytes}."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(root, "training")):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
 def train_from_config(work_dir: str, params: Parameters, seed: int = 0,
                       checkpoint_every=None, resume: bool = False, lr_scales=None,
                       device=None) -> TrialResults:
     """Train every trial of ``params`` and write the artifact tree into
-    ``work_dir``.  Returns the results."""
+    ``work_dir`` (rank 0's job in a process group).  Returns the
+    results."""
     cfg = TrainConfig.from_parameters(params)
-    dev = resolve_device(device)
-    logger = create_logger(
-        "Main training:", os.path.join(work_dir, "main_process_message.txt"), append=True)
+    dev = multihost.rank_device(device)
+    rank, world = multihost.world()
+    if rank:
+        # every file this rank writes lies in its checkpoint subdirectory
+        logger = logging.getLogger(f"rankaae_tpu_torch.train_sc.rank_{rank}")
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
+    else:
+        logger = create_logger(
+            "Main training:", os.path.join(work_dir, "main_process_message.txt"), append=True)
     logger.info("START")
 
     data_file = os.path.join(work_dir, params.get("data_file"))
@@ -111,7 +148,8 @@ def train_from_config(work_dir: str, params: Parameters, seed: int = 0,
     data = TrialData(*(torch.from_numpy(a).to(dev) for a in (
         splits["train"].spec, splits["train"].aux, splits["val"].spec, splits["val"].aux)))
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    logger.info(f"Running {cfg.trials} trial(s) on {dev} ({name})")
+    logger.info(f"Running {cfg.trials} trial(s) on {dev} ({name})"
+                + (f", split over {world} ranks" if world > 1 else ""))
 
     timeout_s = int(cfg.timeout * 3600)
     alarm = timeout_s > 0 and hasattr(signal, "SIGALRM")
@@ -121,15 +159,28 @@ def train_from_config(work_dir: str, params: Parameters, seed: int = 0,
     start = time.time()
     checkpoint_dir = os.path.join(work_dir, "train_state") \
         if (checkpoint_every or resume) else None
+    # rank r > 0 stages its segments' files in its checkpoint subdirectory
+    segment_root = work_dir if checkpoint_dir is None or rank == 0 else \
+        os.path.join(checkpoint_dir, f"rank_{rank:03d}")
     try:
         results = run_trials(
             cfg, data, seed=seed, lr_scales=lr_scales, device=dev,
             checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
-            on_segment=None if checkpoint_dir is None else _segment_writer(work_dir, cfg))
+            on_segment=None if checkpoint_dir is None else _segment_writer(segment_root, cfg))
     finally:
         if alarm:
             signal.alarm(0)
     total = time.time() - start
+    if world > 1 and checkpoint_dir is not None:
+        staged = multihost.all_gather_objects(_staged_files(segment_root) if rank else {})
+        if rank == 0:
+            for files in staged:
+                for rel, blob in files.items():
+                    os.makedirs(os.path.dirname(os.path.join(work_dir, rel)), exist_ok=True)
+                    with open(os.path.join(work_dir, rel), "wb") as f:
+                        f.write(blob)
+    if rank:
+        return results
 
     snapshots = (("final_params", "final_batch_stats"), ("best_params", "best_batch_stats"),
                  ("best_recon_params", "best_recon_batch_stats"))
@@ -228,10 +279,17 @@ def main(argv=None):
     if args.lr_sweep:
         lo, hi = (float(x) for x in args.lr_sweep.split(","))
         lr_scales = np.geomspace(lo, hi, int(params.get("trials", 1))).astype(np.float32)
-    with _profile(args.profile_dir):
-        train_from_config(work_dir, params, seed=args.seed,
-                          checkpoint_every=args.checkpoint_every, resume=args.resume,
-                          lr_scales=lr_scales, device=args.device)
+    joined = multihost.launched() and not dist.is_initialized()
+    if joined:
+        multihost.initialize()
+    try:
+        with _profile(args.profile_dir):
+            train_from_config(work_dir, params, seed=args.seed,
+                              checkpoint_every=args.checkpoint_every, resume=args.resume,
+                              lr_scales=lr_scales, device=args.device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Data layer: spectra CSV -> host arrays (counterpart of
-``rankaae_tpu/data/dataset.py:29-154``, pandas engine only), and the
-report stage's dataset facade :class:`AuxSpectraDataset`.
+``rankaae_tpu/data/dataset.py:29-154``), and the report stage's dataset
+facade :class:`AuxSpectraDataset`.  The CSV is parsed by the native C++
+loader (``data/native.py``) or by pandas, to the same floats.
 
 Parity contract with the reference (``sc/clustering/dataloader.py:8-56``):
 
@@ -72,10 +73,49 @@ class AuxSpectraDataset:
         return self.spec[idx], self.aux[idx]
 
 
-def read_csv(csv_fn: str, dtype=np.float32):
-    """CSV -> (column names, float payload, 2-level row index)."""
+def _read_csv_pandas(csv_fn: str, dtype):
     full_df = pd.read_csv(csv_fn, index_col=[0, 1], comment="#")
     return full_df.columns.to_list(), full_df.to_numpy().astype(dtype), full_df.index.to_list()
+
+
+def _read_index(csv_fn: str, n: int) -> list:
+    """The 2-level row index (the first two CSV fields of every data row,
+    the second an int where it is all digits, as pandas reads it)."""
+    index = []
+    with open(csv_fn) as f:
+        header_seen = False
+        for line in f:
+            ls = line.lstrip()
+            if not ls or ls.startswith("#"):
+                continue
+            if not header_seen:
+                header_seen = True
+                continue
+            a, b, _ = line.split(",", 2)
+            index.append((a, int(b) if b.isdigit() else b))
+    if len(index) != n:
+        raise ValueError(f"{len(index)} index rows for {n} data rows in {csv_fn}")
+    return index
+
+
+def read_csv(csv_fn: str, dtype=np.float32, engine: str = "auto"):
+    """CSV -> (column names, float payload, 2-level row index)
+    (``rankaae_tpu/data/dataset.py:102-120``): ``engine="native"`` parses
+    with the native loader and raises if it cannot be built, ``"pandas"``
+    with pandas, and ``"auto"`` with the native loader where it builds,
+    else pandas."""
+    if engine not in ("auto", "native", "pandas"):
+        raise ValueError(f'engine must be "auto", "native" or "pandas", got {engine!r}')
+    if engine != "pandas":
+        try:
+            from rankaae_tpu_torch.data.native import load_csv_native
+
+            cols, data = load_csv_native(csv_fn, n_index_cols=2)
+            return cols, data.astype(dtype, copy=False), _read_index(csv_fn, data.shape[0])
+        except (RuntimeError, OSError, ValueError):
+            if engine == "native":
+                raise
+    return _read_csv_pandas(csv_fn, dtype)
 
 
 def load_split_arrays(
@@ -83,9 +123,11 @@ def load_split_arrays(
     ratios: Tuple[float, float, float] = (0.7, 0.15, 0.15),
     n_aux: int = 0,
     dtype=np.float32,
+    engine: str = "auto",
 ) -> Dict[str, SplitArrays]:
-    """Load the CSV once and return all three contiguous splits."""
-    cols, data, index = read_csv(csv_fn, dtype)
+    """Load the CSV once (``engine`` as :func:`read_csv`) and return all
+    three contiguous splits."""
+    cols, data, index = read_csv(csv_fn, dtype, engine)
     grid = np.array([float(c[len("ENE_"):]) for c in cols if c.startswith("ENE_")])
 
     # Column-layout checks, as in the reference (dataloader.py:21-25).

@@ -21,13 +21,29 @@ casts K3's output back, so K3 still runs (its bfloat16 instantiation is
 kernel work for later, ROADMAP §2); the result differs from the JAX
 package's bfloat16 block, which rounds at each primitive, by
 bfloat16-sized amounts.
+
+``remat`` (the JAX package's ``nn.remat`` over the conv blocks,
+``rankaae_tpu/models/encoders.py:66-67``, ``decoders.py:80-83``): the
+encoders and decoders run each block through :func:`run_block`, which in
+train mode under autograd wraps it in ``torch.utils.checkpoint`` (not
+reentrant), so the backward recomputes the block's activations instead of
+keeping them.  flax's remat is functional, and two things of a torch block
+are not: its train-mode BatchNorms update their running statistics in
+place, and its dropout draws from the caller's generators, which
+``checkpoint`` does not restore.  So the first call keeps the keep-masks
+it draws, and every recompute (one a backward through the graph: the fused
+protocol runs several) replays them and puts the block's running
+statistics back as it found them.  The numbers are those of the block run
+without ``remat``: outputs, gradients, statistics and generator states.
 """
 from __future__ import annotations
 
 import functools
 import math
 
+import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rankaae_tpu_torch.models.primitives import TrialModule, layers_of
 from rankaae_tpu_torch.ops import fused_block_cuda
@@ -173,3 +189,45 @@ def blocks_of(module: nn.Module):
         return EncodingBlock, DecodingBlock
     return (functools.partial(TrialEncodingBlock, module.trials),
             functools.partial(TrialDecodingBlock, module.trials))
+
+
+class _Remat:
+    """One checkpointed call of ``block``.  The first call is the forward:
+    it asks ``sampler`` for the dropout keep-masks (this object stands in
+    for it) and keeps them.  Every later call is a recompute in a backward:
+    it replays the masks in order and restores the block's running
+    statistics after it."""
+
+    def __init__(self, block: nn.Module, sampler):
+        self.block, self.sampler = block, sampler
+        self.masks, self.next, self.called = [], 0, False
+
+    def __call__(self, x):
+        stand_in = None if self.sampler is None else self
+        self.next = 0
+        if not self.called:
+            self.called = True
+            return self.block(x, stand_in)
+        saved = [b.clone() for b in self.block.buffers()]
+        try:
+            return self.block(x, stand_in)
+        finally:
+            with torch.no_grad():
+                for b, s in zip(self.block.buffers(), saved):
+                    b.copy_(s)
+
+    def keep_mask(self, shape, keep):
+        if self.next == len(self.masks):        # the first call draws
+            self.masks.append(self.sampler.keep_mask(shape, keep))
+        self.next += 1
+        return self.masks[self.next - 1]
+
+
+def run_block(block: nn.Module, x, sampler, remat: bool):
+    """``block(x, sampler)``; with ``remat``, in train mode under autograd,
+    through ``torch.utils.checkpoint`` with the masks replayed and the
+    running statistics restored in each recompute (module docstring)."""
+    if not (remat and block.training and torch.is_grad_enabled()):
+        return block(x, sampler)
+    return checkpoint(_Remat(block, sampler), x, use_reentrant=False,
+                      preserve_rng_state=False)

@@ -8,13 +8,16 @@ decoders end in stride-1 length-256 EncodingBlocks; in eval mode their
 c_in == c_out ones run as the K3 kernel on the card (``models/blocks.py``;
 stacked, one launch per trial).  Each ``Trial*`` class is its single-trial
 class stacked T times: it takes (T, B, nstyle) and returns (T, B, dim_out).
+With ``remat`` the conv decoders run each DecodingBlock and EncodingBlock
+through ``blocks.run_block`` in train mode (the JAX modules' ``nn.remat``);
+eval mode, and with it K3, is unchanged.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from rankaae_tpu_torch.models.blocks import blocks_of
+from rankaae_tpu_torch.models.blocks import blocks_of, run_block
 from rankaae_tpu_torch.models.primitives import (
     TrialModule,
     from_channels,
@@ -68,7 +71,8 @@ class TrialFCDecoder(TrialModule, FCDecoder):
 
 class _ConvDecoder(nn.Module):
     """z -> DecodingBlocks (length 1 -> 256) -> stride-1 EncodingBlocks of
-    length 256 and kernel 11 -> BN -> 1x1 Conv -> activation."""
+    length 256 and kernel 11 -> BN -> 1x1 Conv -> activation; each block
+    under ``remat`` when it is set."""
 
     #: (c_in, c_out, in_len, excitation, out_len) of each DecodingBlock, with
     #: c_in None for nstyle
@@ -77,8 +81,10 @@ class _ConvDecoder(nn.Module):
     ENC: tuple = ()
 
     def __init__(self, nstyle: int = 5, dropout_rate: float = 0.2, dim_out: int = 256,
-                 last_layer_activation: str = "ReLu", n_layers: int = 3):
+                 last_layer_activation: str = "ReLu", n_layers: int = 3,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         layers = layers_of(self)
         encoding_block, decoding_block = blocks_of(self)
         self.act = _last_act(last_layer_activation)
@@ -97,9 +103,9 @@ class _ConvDecoder(nn.Module):
     def forward(self, z, sampler=None):
         x = to_channels(self, z[..., None])
         for i in range(len(self.DEC)):
-            x = getattr(self, f"dblock{i}")(x, sampler)
+            x = run_block(getattr(self, f"dblock{i}"), x, sampler, self.remat)
         for i in range(len(self.ENC)):
-            x = getattr(self, f"eblock{i}")(x, sampler)
+            x = run_block(getattr(self, f"eblock{i}"), x, sampler, self.remat)
         return self.act(from_channels(self, self.conv_out(self.bn_out(x)))[..., 0, :])
 
 
@@ -112,9 +118,10 @@ class Decoder(_ConvDecoder):
     ENC = ((4, 4), (4, 4), (4, 2), (2, 2), (2, 2))
 
     def __init__(self, nstyle: int = 5, dropout_rate: float = 0.2, dim_out: int = 256,
-                 last_layer_activation: str = "ReLu", n_layers: int = 3):
+                 last_layer_activation: str = "ReLu", n_layers: int = 3,
+                 remat: bool = False):
         # the flax Decoder ignores dim_out: every eblock is 256 -> 256
-        super().__init__(nstyle, dropout_rate, 256, last_layer_activation, n_layers)
+        super().__init__(nstyle, dropout_rate, 256, last_layer_activation, n_layers, remat)
 
 
 class TrialDecoder(TrialModule, Decoder):

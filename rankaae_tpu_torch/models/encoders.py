@@ -7,14 +7,17 @@ follow the flax module's (``lin{i}``, ``prelu{i}``, ``bn{i}``, ``lin_out``,
 ``block{i}``, ``lin3``, ``bn_style``) so the weight bridge maps them one to
 one.  Each ``Trial*`` class is its single-trial class stacked T times: it
 takes (T, B, dim_in) and returns (T, B, nstyle); inside, the conv encoders'
-blocks run over (B, T*C, L) (``models/primitives.py``).
+blocks run over (B, T*C, L) (``models/primitives.py``).  With ``remat``
+the conv encoders run each block through ``blocks.run_block``, which
+recomputes its activations in the backward (the JAX modules'
+``nn.remat``); the FC and qved encoders have no block to wrap.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from rankaae_tpu_torch.models.blocks import blocks_of
+from rankaae_tpu_torch.models.blocks import blocks_of, run_block
 from rankaae_tpu_torch.models.primitives import (
     TrialModule,
     from_channels,
@@ -61,13 +64,15 @@ class TrialFCEncoder(TrialModule, FCEncoder):
 
 
 class _ConvEncoder(nn.Module):
-    """(B, L) -> stride-2 EncodingBlocks -> flatten to 32 -> Linear -> BN."""
+    """(B, L) -> stride-2 EncodingBlocks -> flatten to 32 -> Linear -> BN;
+    each block under ``remat`` when it is set."""
 
     SPECS: tuple = ()
 
     def __init__(self, nstyle: int = 5, dropout_rate: float = 0.2, dim_in: int = 256,
-                 n_layers: int = 3):
+                 n_layers: int = 3, remat: bool = False):
         super().__init__()
+        self.remat = remat
         layers = layers_of(self)
         encoding_block, _ = blocks_of(self)
         self.n_blocks = len(self.SPECS)
@@ -82,7 +87,7 @@ class _ConvEncoder(nn.Module):
     def forward(self, spec, sampler=None):
         x = to_channels(self, spec[..., None, :])
         for i in range(self.n_blocks):
-            x = getattr(self, f"block{i}")(x, sampler)
+            x = run_block(getattr(self, f"block{i}"), x, sampler, self.remat)
         x = from_channels(self, x)
         return self.bn_style(self.lin3(x.reshape(*x.shape[:-2], 32)))
 

@@ -4,7 +4,9 @@ Every form the config schema accepts (FC, ``normal``, ``compact``,
 ``qved``) and both discriminators.  With ``trials=T`` the builders return
 the trainer's modules, stacked T times over (T, B, ...); without, the
 single-trial modules that serving and the bundles use.  The modules
-compute in the config's ``activation_dtype``.
+compute in the config's ``activation_dtype``, and the conv forms take the
+config's ``remat`` (``rankaae_tpu/models/registry.py:22-36``; the FC and
+qved forms have no block for it).
 """
 from __future__ import annotations
 
@@ -38,6 +40,9 @@ from rankaae_tpu_torch.models.encoders import (
 )
 from rankaae_tpu_torch.models.primitives import set_activation_dtype
 
+#: the forms whose encoder and decoder take ``remat``
+REMAT_FORMS = ("normal", "compact")
+
 #: every form the config schema accepts -> ((encoder, stacked encoder),
 #: (decoder, stacked decoder))
 AE_FORMS = {
@@ -56,16 +61,18 @@ def _build(classes, trials: Optional[int], **kw):
 def build_autoencoder(cfg, trials: Optional[int] = None):
     """Instantiate (encoder, decoder) modules from a TrainConfig: the
     single-trial modules, or with ``trials`` the trainer's (T, B, ...)
-    modules, computing in the config's ``activation_dtype``."""
+    modules, computing in the config's ``activation_dtype``, the conv forms
+    under the config's ``remat``."""
     enc, dec = AE_FORMS[cfg.ae_form]
     dtype = cfg.activation_dtype
+    kw = {"remat": cfg.remat} if cfg.ae_form in REMAT_FORMS else {}
     return (set_activation_dtype(_build(enc, trials, nstyle=cfg.nstyle,
                                         dropout_rate=cfg.dropout_rate, dim_in=cfg.dim_in,
-                                        n_layers=cfg.n_layers), dtype),
+                                        n_layers=cfg.n_layers, **kw), dtype),
             set_activation_dtype(_build(dec, trials, nstyle=cfg.nstyle,
                                         dropout_rate=cfg.dropout_rate, dim_out=cfg.dim_out,
                                         last_layer_activation=cfg.decoder_activation,
-                                        n_layers=cfg.n_layers), dtype))
+                                        n_layers=cfg.n_layers, **kw), dtype))
 
 
 def build_discriminator(cfg, trials: Optional[int] = None):

@@ -8,12 +8,17 @@ and since trials share no parameter each trial gets exactly its own
 gradient (a mean over trials would scale every gradient by 1/T).
 
 The JAX package's key-taking helpers (``adversarial_loss``,
-``discriminator_loss``, ``generator_loss``, ``mutual_info_loss``) are not
-here: its trainer computes those losses inline, and so does this package's.
+``discriminator_loss``, ``generator_loss``, ``mutual_info_loss``,
+``rankaae_tpu/ops/losses.py:62-126``) are here too, with a
+``torch.Generator`` where JAX takes a key: the prior is drawn from it, and
+it is handed on to the discriminator closure in place of the key's
+splits.  Neither package's trainer calls them: both compute those losses
+inline.
 """
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 
@@ -60,6 +65,58 @@ def recon_loss(spec_in, spec_out, scale: bool = False, scale_weight: float = 0.1
     loss = _per_trial_mean(torch.square(spec_scale - 1.0)) * scale_weight
     clamped = torch.clamp(spec_scale.detach(), 0.7, 1.3)
     return loss + mse(spec_out, spec_in * clamped[..., None])
+
+
+def _prior(generator: torch.Generator, shape, like: torch.Tensor = None) -> torch.Tensor:
+    z = torch.randn(tuple(shape), generator=generator, device=generator.device)
+    return z if like is None else z.to(like.dtype)
+
+
+def adversarial_loss(styles, discriminator_apply: Callable, alpha,
+                     generator: torch.Generator, batch_size: int):
+    """GRL-path adversarial loss (reference ``functions.py:109-132``):
+    ``batch_size`` rows of z ~ N(0, I) per trial labelled 1, the (T, B,
+    nstyle) ``styles`` labelled 0, the sum of two mean BCE-with-logits terms
+    (T,).  ``discriminator_apply(x, alpha, generator)`` runs the
+    discriminator in the caller's mode and returns (T, n, 1) logits."""
+    z_real = _prior(generator, styles.shape[:-2] + (batch_size, styles.shape[-1]), styles)
+    real_pred = discriminator_apply(z_real, alpha, generator).squeeze(-1)
+    fake_pred = discriminator_apply(styles, alpha, generator).squeeze(-1)
+    return bce_with_logits(real_pred, torch.ones_like(real_pred)) + \
+        bce_with_logits(fake_pred, torch.zeros_like(fake_pred))
+
+
+def discriminator_loss(styles, discriminator_apply: Callable, generator: torch.Generator,
+                       batch_size: int):
+    """Non-GRL discriminator loss for the 2-class CNN discriminator
+    (reference ``functions.py:135-155``): z ~ N(0, I) class 1, the detached
+    ``styles`` class 0, NLL on its log-probabilities, (T,)."""
+    z_real = _prior(generator, styles.shape[:-2] + (batch_size, styles.shape[-1]), styles)
+    real_pred = discriminator_apply(z_real, None, generator)
+    fake_pred = discriminator_apply(styles.detach(), None, generator)
+    return nll_loss(real_pred, torch.ones(real_pred.shape[:-1], dtype=torch.long,
+                                          device=real_pred.device)) + \
+        nll_loss(fake_pred, torch.zeros(fake_pred.shape[:-1], dtype=torch.long,
+                                        device=fake_pred.device))
+
+
+def generator_loss(styles, discriminator_apply: Callable, generator: torch.Generator):
+    """Non-GRL generator loss (reference ``functions.py:158-171``): NLL of
+    the discriminator calling ``styles`` class 1, (T,).  The reference
+    labels them 0, which pushes the styles to look fake; like the JAX
+    package this labels them 1, the working generator objective."""
+    pred = discriminator_apply(styles, None, generator)
+    return nll_loss(pred, torch.ones(pred.shape[:-1], dtype=torch.long, device=pred.device))
+
+
+def mutual_info_loss(encoder_apply: Callable, decoder_apply: Callable,
+                     generator: torch.Generator, batch_size: int, nstyle: int,
+                     trials: int = 1):
+    """Latent-cycle consistency (reference ``functions.py:174-192``): z ~
+    N(0, I) of (trials, batch_size, nstyle); MSE(encoder(decoder(z)), z),
+    (trials,)."""
+    z = _prior(generator, (trials, batch_size, nstyle))
+    return mse(encoder_apply(decoder_apply(z)), z)
 
 
 def smoothness_loss(spec_out, gs_kernel_size: int = 17, sigma: float = 3.0):

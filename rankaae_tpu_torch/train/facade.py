@@ -13,7 +13,9 @@ recon MSE, extras ``best_recon_epoch``/``best_recon_mse``), each with its
 metrics list ``[min shapiro-W, val recon MSE, avg train MI, max inter-style
 |rho|, val kendall]`` (``trainer.py:294-295``).
 
-``device`` defaults to ``cuda:<igpu>``; with no CUDA device present,
+``get_style_distribution_plot`` draws a latent batch's per-style
+histograms (``facade.py:120-139``).  ``device`` defaults to
+``cuda:<igpu>``; with no CUDA device present,
 ``from_data`` raises unless the caller passes ``device="cpu"``.  The facade
 trains one trial (the trainer at T = 1); ``train_sc``
 (``cli/train_sc.py``) trains the config's ``trials``.
@@ -128,3 +130,22 @@ class Trainer:
         if self.verbose:
             self.logger.info(metrics)
         return metrics
+
+    def get_style_distribution_plot(self, z):
+        """Stacked per-style histograms of a latent batch ``z`` (B, nstyle), a
+        tensor or an array (``rankaae_tpu/train/facade.py:120-139``; the
+        reference's ``sc/clustering/trainer.py:323-330``): nstyle
+        shared-axis rows of step-filled histograms over bins
+        ``arange(-3, 3.01, 0.2)``, on a ``matplotlib.figure.Figure`` made
+        without pyplot (the user's backend is left alone)."""
+        from matplotlib.figure import Figure
+
+        z = z.detach().cpu().numpy() if isinstance(z, torch.Tensor) else np.asarray(z)
+        nstyle = self.core.cfg.nstyle
+        fig = Figure(figsize=(9, 12))
+        ax_list = fig.subplots(nstyle, 1, sharex=True, sharey=True)
+        bins = np.arange(-3.0, 3.01, 0.2)
+        for istyle, ax in zip(range(nstyle), np.atleast_1d(ax_list)):
+            ax.hist(z[:, istyle], bins=bins, color="blue", histtype="stepfilled",
+                    edgecolor="blue")
+        return fig

@@ -188,6 +188,10 @@ class RankAAETrainer:
             "dis": build_discriminator(cfg, trials).to(self.device),
         }
         self._single_models: Optional[Dict[str, nn.Module]] = None
+        #: where an epoch's batches come from: None reads them from the
+        #: dataset's train rows; the trial x dp layout sets a
+        #: ``parallel.trials.RowShards`` that gathers them from its group
+        self.rows = None
         self.opts: Dict[str, Optimizer] = {}
         for name, (_, ratio_attr, beta_attr, explicit_wd) in OPT_SPECS.items():
             betas = (0.9, 0.999)
@@ -798,9 +802,13 @@ class RankAAETrainer:
             idx = perm[:, start:start + cfg.batch_size]
             flat = idx.reshape(-1)
             b = idx.shape[1]
-            state, last = self._train_batch(
-                state, data.train_spec.index_select(0, flat).view(t, b, -1),
-                data.train_aux.index_select(0, flat).view(t, b, -1), alpha, epoch)
+            if self.rows is None:
+                spec, aux = (data.train_spec.index_select(0, flat),
+                             data.train_aux.index_select(0, flat))
+            else:
+                spec, aux = self.rows.gather(flat)
+            state, last = self._train_batch(state, spec.view(t, b, -1), aux.view(t, b, -1),
+                                            alpha, epoch)
             mi_sum = mi_sum + last["mi"]
         avg_mi = mi_sum / self.n_batch
 

@@ -71,8 +71,7 @@ class TrainConfig:
     key-for-key so shipped configs run unmodified.  The comments below
     describe each knob as the JAX package uses it; the PyTorch trainer
     implements every one of them but the knobs that only shape an XLA
-    program (``rng_impl``, ``scan_unroll``) and ``remat``, which it
-    ignores.
+    program (``rng_impl``, ``scan_unroll``).
     """
 
     # system
