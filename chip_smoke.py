@@ -150,7 +150,17 @@ Phases (any failure exits non-zero and prints no result):
    dp layout (2 trials at dp 2, one rank a card, NCCL) against dp 1, only
    where the machine has two cards, else one line saying why not; (d) the
    native CSV loader against pandas on the 7,000-row CSV: equal, and the
-   median time of each.
+   median time of each;
+13. the JAX package's public surface — (a) ``RankAAETrainer.run`` of
+   ``example/fix_config.yaml``'s 8 trials (full width, EPOCHS epochs)
+   against ``run_epochs`` over [0, RUN_CUT), its train state saved with
+   ``save_train_state``, reloaded into a fresh trainer and resumed by
+   ``run(start_epoch=RUN_CUT)``: every log and every train-state leaf
+   bit-identical, K1 and K2 twice phase 3's one-trial run; (b)
+   ``get_dataloaders`` over the 7,000-row CSV at B 1024 feeding a seeded
+   ``DualAAE`` of the normal form with ``DiscriminatorFC`` on the card,
+   against the same module carried to the CPU by the weight bridge, K3 four
+   launches a batch; (c) ``native_available()`` printed.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
@@ -182,7 +192,8 @@ relative (half a bfloat16 unit), never under phase 4's tolerances; 12a
 bit-identical, or phase 4's tolerances; 12b bit-identical to the same
 stacks, and phase 4's loss tolerance on the training losses against one
 wave (8b's); 12c
-phase 4's loss tolerance on every log; 12d exact.
+phase 4's loss tolerance on every log; 12d exact; 13a bit-identical; 13b
+serving's atol 1e-4 on the reconstructions and discriminator outputs.
 """
 from __future__ import annotations
 
@@ -2022,6 +2033,137 @@ def loader_times(np, csv, card):
     return med
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the JAX package's public surface (RankAAETrainer.run and
+# run_epochs, get_dataloaders, DualAAE, native_available)
+# ---------------------------------------------------------------------------
+
+RUN_CUT = 1                      # 13a: run_epochs over [0, RUN_CUT), then run(start_epoch=)
+DUAL_B = 1024                    # 13b: get_dataloaders' batch size
+DUAL_SEED = 13
+
+
+def state_leaves(np, tree, prefix=""):
+    """``RankAAETrainer.state_tree``'s leaves by path, as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in state_leaves(np, sub, f"{prefix}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in state_leaves(np, sub, f"{prefix}[{i}]").items()}
+    return {prefix: np.asarray(tree)}
+
+
+def run_resumed_on_card(torch, np, kc, cfg, splits, tmp, card, expect):
+    """Phase 13a: ``RankAAETrainer.run`` of the config's trials (full width,
+    EPOCHS epochs) against ``run_epochs`` over [0, RUN_CUT), its train state
+    saved (``save_train_state``), reloaded into a fresh trainer and resumed
+    by ``run(start_epoch=RUN_CUT)``: every log and every leaf of the train
+    state (weights, moments, trackers, schedulers, generators)
+    bit-identical.  K1 and K2 launch as phase 3's one-trial run, twice over
+    (the uncut run and the cut one, one launch for all trials).  Returns
+    the launches."""
+    from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+    from rankaae_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+
+    rcfg = cfg.replace(max_epoch=EPOCHS)
+    data = TrialData(*(torch.tensor(a, device="cuda") for a in splits))
+
+    def trainer():
+        return RankAAETrainer(rcfg, n_train=splits[0].shape[0], n_val=splits[2].shape[0],
+                              trials=rcfg.trials, device="cuda")
+
+    kc.fwd_launches = kc.bwd_launches = 0
+    t0 = time.perf_counter()
+    uncut = trainer()
+    s_uncut, logs = uncut.run(uncut.init_state(0), data)
+    cut = trainer()
+    s_cut, first = cut.run_epochs(cut.init_state(0), data, range(RUN_CUT))
+    path = save_train_state(os.path.join(tmp, "run_13a.mpk"), cut.state_tree(s_cut),
+                            extra={"epoch": RUN_CUT})
+    tree, extra = load_train_state(path)
+    resumed = trainer()
+    s_res = resumed.load_state_tree(resumed.init_state(0), tree)
+    s_res, rest = resumed.run(s_res, data, start_epoch=extra["epoch"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"kendall_pair_sums": kc.fwd_launches, "kendall_grad_rows": kc.bwd_launches}
+    assert_tickets_clear(kc, "after 13a")
+    want = {k: 2 * v for k, v in expect.items()}
+    assert launches == want, (launches, want)
+    t = rcfg.trials
+    assert logs["metrics"].shape == (EPOCHS, t, 5) and logs["epoch"].shape == (EPOCHS, t)
+    assert torch.equal(RankAAETrainer.final_metrics(logs), logs["metrics"][-1])
+    for k, v in logs.items():
+        assert torch.isfinite(v.float()).all(), k
+        assert torch.equal(torch.cat([first[k], rest[k]]), v), k
+    a, b = (state_leaves(np, tr.state_tree(st)) for tr, st in ((uncut, s_uncut),
+                                                                (resumed, s_res)))
+    assert sorted(a) == sorted(b)
+    differ = [k for k in a if not np.array_equal(a[k], b[k])]
+    assert not differ, differ
+    print(f"13a run/run_epochs: {t} trials of example/fix_config.yaml at full width, "
+          f"{EPOCHS} epochs: run() against run_epochs over [0, {RUN_CUT}), the train state "
+          f"saved, reloaded into a fresh trainer and run(start_epoch={RUN_CUT}): all "
+          f"{len(logs)} logs and {len(a)} train-state leaves bit-identical; {wall:.2f} s for "
+          f"the three trainers; K1/K2 launches {launches} (expected {want}) [{card}]")
+    return launches
+
+
+def dual_aae_on_card(torch, np, fb, csv, card):
+    """Phase 13b: ``get_dataloaders`` over the CSV, its train batches (B
+    DUAL_B, the last one ragged) through a seeded ``DualAAE`` of the normal
+    form with ``DiscriminatorFC`` on the card, against the same module
+    carried to the CPU through the weight bridge (``to_jax`` then
+    ``load_jax``), at phase 6's serving tolerance; K3 launches
+    NORMAL_FUSED_BLOCKS times a batch.  Returns the K3 launches."""
+    from rankaae_tpu_torch.data.dataset import get_dataloaders
+    from rankaae_tpu_torch.models.decoders import Decoder
+    from rankaae_tpu_torch.models.encoders import Encoder
+    from rankaae_tpu_torch.models.registry import DualAAE
+    from rankaae_tpu_torch.utils.weights import to_jax
+
+    train, _, _ = get_dataloaders(csv, batch_size=DUAL_B, n_aux=5)
+    torch.manual_seed(DUAL_SEED)
+    model = DualAAE(False, Encoder, Decoder)          # on the card by default
+    gen = torch.Generator().manual_seed(DUAL_SEED)
+    with torch.no_grad():                             # running statistics away from 0 and 1
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=gen))
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+    params, stats = to_jax({"enc": model.encoder, "dec": model.decoder,
+                            "dis": model.discriminator})
+    cpu = DualAAE(False, Encoder, Decoder, device="cpu").load_jax(
+        {r: {"params": params[r], "batch_stats": stats[r]} for r in params})
+    batches = list(train)
+    fb.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs = [model(spec.to("cuda")) for spec, _ in batches]
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = fb.launches
+    want = NORMAL_FUSED_BLOCKS * len(batches)
+    assert launches == want, (launches, want)
+    err = {"reconstruction": 0.0, "discriminator": 0.0}
+    with torch.no_grad():
+        for (spec, _), (x2, gau) in zip(batches, outs):
+            c2, cgau = cpu(spec)
+            assert x2.shape == c2.shape == spec.shape and gau.shape == cgau.shape == (
+                spec.shape[0], 1)
+            assert torch.isfinite(x2).all() and torch.isfinite(gau).all()
+            err["reconstruction"] = max(err["reconstruction"],
+                                        (x2.cpu() - c2).abs().max().item())
+            err["discriminator"] = max(err["discriminator"], (gau.cpu() - cgau).abs().max().item())
+    assert all(v <= SERVE_ATOL for v in err.values()), err
+    print(f"13b DualAAE: get_dataloaders' {len(batches)} train batches (B {DUAL_B}, rows "
+          f"{[b[0].shape[0] for b in batches]}) through the normal form with DiscriminatorFC: "
+          f"card vs CPU max |difference| {json.dumps(err)} (atol {SERVE_ATOL}); the card's "
+          f"forwards {card_s * 1e3:.1f} ms; K3 launches {launches} (expected {want}) [{card}]")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2302,19 +2444,34 @@ def main() -> int:
         print(f"12c, 12d: {time.perf_counter() - t0:.1f} s; phases 1-12: "
               f"{time.perf_counter() - t_start:.1f} s")
 
+        # ---- 13. the JAX package's public surface ------------------------ #
+        from rankaae_tpu_torch.data.native import native_available
+
+        t0 = time.perf_counter()
+        run_launches = run_resumed_on_card(torch, np, kc, cfg, splits, tmp9, card, expect)
+        print(f"13a: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        set_matmul_precision("highest")
+        dual_k3 = dual_aae_on_card(torch, np, fb, csv8, card)
+        set_matmul_precision(cfg.matmul_precision)
+        print(f"13b: {time.perf_counter() - t0:.1f} s")
+        print(f"13c native_available(): {native_available()}")
+        print(f"phases 1-13: {time.perf_counter() - t_start:.1f} s")
+
     for name in ("kendall_pair_sums", "kendall_grad_rows"):
         launches[name] += conv_launches[name] + trial_launches[name] + recal_launches[name] \
             + sum(run[1][name] for run in resume_runs.values()) + normal_launches[name] \
-            + qved_launches[name] + option_launches[name] + remat_launches[name]
+            + qved_launches[name] + option_launches[name] + remat_launches[name] \
+            + run_launches[name]
     k3_launches += conv_launches["fused_block"] + conv_launches["fused_block_serve"] \
         + recal_launches["fused_block"] + sum(report_k3.values()) \
         + normal_launches["fused_block"] + option_launches["fused_block"] \
-        + remat_launches["fused_block"]
+        + remat_launches["fused_block"] + dual_k3
     print(f"main-path launches: K1 {launches['kendall_pair_sums']}, K2 "
           f"{launches['kendall_grad_rows']} (phase 3, 7a, 8a, 9a, 9b, 10a, 10c, 11a, 11c, "
-          f"11d, 12a and 12b training), K3 {k3_launches} (phase 6 CLI, 7a training and CLI, "
-          f"9b training and amplitude gains, 9c reports, 10a, 11a, 11c, 11d and 12a training, "
-          f"11d CLI)")
+          f"11d, 12a, 12b and 13a training), K3 {k3_launches} (phase 6 CLI, 7a training and "
+          f"CLI, 9b training and amplitude gains, 9c reports, 10a, 11a, 11c, 11d and 12a "
+          f"training, 11d CLI, 13b DualAAE)")
 
     rows = []
     for name, line in (("kendall_pair_sums", 49), ("kendall_grad_rows", 91)):
@@ -2340,7 +2497,7 @@ def main() -> int:
           "or their gradient rows, nor the fused EncodingBlock (two convs, BNs, PReLUs, "
           "residual and excitation MLP); K3's row is at the serving shape C 4, B 1024; "
           "launches are the main paths' (phases 3, 6, 7a, 8a, 9a, 9b, 9c, 10a, 10c, 11a, "
-          "11c, 11d, 12a and 12b)")
+          "11c, 11d, 12a, 12b, 13a and 13b)")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

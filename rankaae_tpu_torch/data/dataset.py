@@ -1,7 +1,8 @@
 """Data layer: spectra CSV -> host arrays (counterpart of
-``rankaae_tpu/data/dataset.py:29-154``), and the report stage's dataset
-facade :class:`AuxSpectraDataset`.  The CSV is parsed by the native C++
-loader (``data/native.py``) or by pandas, to the same floats.
+``rankaae_tpu/data/dataset.py``), the reference's dataset facade
+:class:`AuxSpectraDataset` and its loader API (:func:`get_dataloaders`,
+:class:`DataLoader`, :class:`ToTensor`).  The CSV is parsed by the native
+C++ loader (``data/native.py``) or by pandas, to the same floats.
 
 Parity contract with the reference (``sc/clustering/dataloader.py:8-56``):
 
@@ -22,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import pandas as pd
+import torch
 
 PORTIONS = ("train", "val", "test")
 
@@ -152,3 +154,67 @@ def load_split_arrays(
         )
         start += size
     return out
+
+
+def epoch_batch_indices(rng: np.random.Generator, n: int, batch_size: int) -> np.ndarray:
+    """The JAX package's host helper (``rankaae_tpu/data/dataset.py:157-171``):
+    a permutation of [0, n) from ``rng``, padded by wrapping to ceil(n/B)
+    batches of ``batch_size`` each, as (n_batch, batch_size).  Static XLA
+    shapes forbid a ragged last batch there; this package's trainer runs
+    the ragged batch at its own size and does not use it."""
+    n_batch = -(-n // batch_size)
+    perm = rng.permutation(n)
+    padded = np.concatenate([perm, perm[: n_batch * batch_size - n]])
+    return padded.reshape(n_batch, batch_size)
+
+
+class ToTensor:
+    """The reference's transform (``dataloader.py:59-61``): a sample as a
+    CPU float32 tensor."""
+
+    def __call__(self, sample):
+        return torch.from_numpy(np.array(sample, dtype=np.float32))
+
+
+class DataLoader:
+    """Batches of an :class:`AuxSpectraDataset` with the reference
+    DataLoader's semantics (``dataloader.py:64-77``;
+    ``rankaae_tpu/data/dataset.py:181-210``): shuffled from
+    ``np.random.default_rng(seed)`` anew each pass where ``shuffle``, in
+    order otherwise, the last batch ragged, ``len()`` ceil(n/B), and a
+    ``.dataset`` attribute.  A batch is (spectra (b, dim), descriptors
+    (b, n_aux), or (b, 1) zeros for a split without them), as CPU float32
+    tensors, the rows the JAX loader gives for the same seed.  The trainer
+    does not use it: it gathers its batches on the device."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // self.batch_size)
+
+    def __iter__(self):
+        n = len(self.dataset)
+        order = self._rng.permutation(n) if self.shuffle else np.arange(n)
+        for start in range(0, n, self.batch_size):
+            idx = order[start:start + self.batch_size]
+            aux = (self.dataset.aux[idx] if self.dataset.aux is not None
+                   else np.zeros((len(idx), 1), np.float32))
+            yield (torch.from_numpy(np.array(self.dataset.spec[idx], np.float32)),
+                   torch.from_numpy(np.array(aux, np.float32)))
+
+
+def get_dataloaders(csv_fn: str, batch_size: int,
+                    train_val_test_ratios: Tuple[float, float, float] = (0.7, 0.15, 0.15),
+                    n_aux: int = 0):
+    """The reference's loader factory (``dataloader.py:64-77``): (train
+    shuffled, val, test) :class:`DataLoader`s over the contiguous splits."""
+    ds_train, ds_val, ds_test = [
+        AuxSpectraDataset(csv_fn, p, train_val_test_ratios, n_aux=n_aux) for p in PORTIONS
+    ]
+    return (DataLoader(ds_train, batch_size, shuffle=True),
+            DataLoader(ds_val, batch_size),
+            DataLoader(ds_test, batch_size))

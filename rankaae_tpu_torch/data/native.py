@@ -3,8 +3,9 @@
 ``csrc/csv_loader.cpp``.
 
 The first call builds the source with ``g++`` (the JAX package's flags)
-into ``rankaae_tpu_torch/_build/``, named by the hash of the source and
-the flags as the CUDA libraries are (``ops/_nvcc.py``), and loads it;
+into ``rankaae_tpu_torch/_build/`` (the user's cache where the installed
+package cannot be written), named by the hash of the source and the flags
+as the CUDA libraries are (``ops/_nvcc.py::library_path``), and loads it;
 nothing runs at import.  A build that cannot run (no ``g++``) or fails
 raises ``RuntimeError``: ``data/dataset.py``'s ``engine="auto"`` then reads
 with pandas, ``engine="native"`` lets it raise.  This is a host parser: its
@@ -13,7 +14,6 @@ floats are the same as the JAX package's loader gives.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -23,9 +23,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "csv_loader.cpp"
-BUILD_DIR = _PKG / "_build"
+from rankaae_tpu_torch.ops import _nvcc
+
+SOURCE = _nvcc.CSRC / "csv_loader.cpp"
+BUILD_DIR = _nvcc.BUILD_DIR
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()
@@ -33,15 +34,14 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"lib{SOURCE.stem}_{digest.hexdigest()[:16]}.so"
+    return _nvcc.library_path(SOURCE, GXX_FLAGS, BUILD_DIR)
 
 
 def _build(so: Path) -> None:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the native CSV loader cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     res = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True,
                          text=True, timeout=120)
@@ -70,6 +70,16 @@ def load() -> ctypes.CDLL:
             lib.rankaae_csv_read.restype = ctypes.c_int64
             _lib = lib
         return _lib
+
+
+def native_available() -> bool:
+    """Whether :func:`load` builds and loads the library
+    (``rankaae_tpu/data/native.py:76``)."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 def load_csv_native(path: str, n_index_cols: int = 2) -> Tuple[List[str], np.ndarray]:

@@ -6,11 +6,15 @@ the trainer's modules, stacked T times over (T, B, ...); without, the
 single-trial modules that serving and the bundles use.  The modules
 compute in the config's ``activation_dtype``, and the conv forms take the
 config's ``remat`` (``rankaae_tpu/models/registry.py:22-36``; the FC and
-qved forms have no block for it).
+qved forms have no block for it).  :class:`DualAAE` is the reference's
+``DummyDualAAE``: an encoder, a decoder and a discriminator behind one
+forward.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
+
+from torch import nn
 
 from rankaae_tpu_torch.models.decoders import (
     CompactDecoder,
@@ -39,6 +43,8 @@ from rankaae_tpu_torch.models.encoders import (
     TrialQvecEncoder,
 )
 from rankaae_tpu_torch.models.primitives import set_activation_dtype
+from rankaae_tpu_torch.utils.device import resolve_device
+from rankaae_tpu_torch.utils.weights import from_jax_variables
 
 #: the forms whose encoder and decoder take ``remat``
 REMAT_FORMS = ("normal", "compact")
@@ -87,3 +93,35 @@ def build_discriminator(cfg, trials: Optional[int] = None):
                      dropout_rate=cfg.dis_dropout_rate, noise=cfg.dis_noise,
                      layers=cfg.FC_discriminator_layers)
     return set_activation_dtype(dis, cfg.activation_dtype)
+
+
+class DualAAE(nn.Module):
+    """Encoder + decoder + discriminator behind one forward, the reference's
+    ``DummyDualAAE`` (``sc/clustering/model.py:665-676``;
+    ``rankaae_tpu/models/registry.py:55-84``): ``cls_encoder()``,
+    ``cls_decoder()`` and a default ``DiscriminatorCNN()`` or
+    ``DiscriminatorFC()``, on ``device`` (default ``"cuda"``; raises if no
+    CUDA device is present), in eval mode as the JAX ``apply`` runs them.
+    ``forward(x)`` returns (reconstruction, the discriminator's output on
+    the latent at beta 0.3).  On the card the conv decoders' eval-mode
+    stride-1 blocks run as the K3 kernel."""
+
+    def __init__(self, use_cnn_dis: bool, cls_encoder, cls_decoder, device=None):
+        super().__init__()
+        self.encoder = cls_encoder()
+        self.decoder = cls_decoder()
+        self.discriminator = DiscriminatorCNN() if use_cnn_dis else DiscriminatorFC()
+        self.to(resolve_device(device)).eval()
+
+    def load_jax(self, variables: Mapping) -> "DualAAE":
+        """Load the JAX ``DualAAE``'s variables ``{"enc", "dec", "dis"}``
+        (``utils/weights.py::from_jax_variables``)."""
+        sds = from_jax_variables(variables)
+        for role, m in (("enc", self.encoder), ("dec", self.decoder),
+                        ("dis", self.discriminator)):
+            m.load_state_dict(sds[role])
+        return self
+
+    def forward(self, x, sampler=None):
+        z = self.encoder(x, sampler)
+        return self.decoder(z, sampler), self.discriminator(z, 0.3, sampler)

@@ -2,10 +2,11 @@
 
 Each source under ``csrc/`` is compiled into a shared library with a plain C
 interface (``-shared -Xcompiler -fPIC`` for ``sm_90a``) in
-``rankaae_tpu_torch/_build/``, named by the hash of the source and the
-flags, so an unchanged source is never rebuilt and an edited one always is.
-nvcc's output (the ptxas register, shared-memory and spill report) is kept
-beside each library and read back by :func:`build_log`.  :func:`compile_all`
+``rankaae_tpu_torch/_build/`` (in the user's cache where the installed
+package cannot be written; :func:`library_path`), named by the hash of the
+source and the flags, so an unchanged source is never rebuilt and an edited
+one always is.  nvcc's output (the ptxas register, shared-memory and spill
+report) is kept beside each library and read back by :func:`build_log`.  :func:`compile_all`
 starts one ``nvcc`` per source at once and waits for all of them;
 :func:`load` compiles one source if needed and loads it.  Nothing here runs
 when the module is imported.
@@ -18,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Iterable
+from typing import Iterable, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -37,9 +38,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
+def _writable(d: Path) -> bool:
+    """Whether ``d`` can be written, or made where it is missing."""
+    while not d.exists():
+        d = d.parent
+    return os.access(d, os.W_OK)
+
+
+def library_path(source: Path, flags: Iterable[str] = NVCC_FLAGS,
+                 build_dir: Optional[Path] = None) -> Path:
+    """The library of ``source`` built with ``flags``: in ``build_dir``
+    (default the package's ``_build/``) where it is built or can be built
+    there, else in ``~/.cache/rankaae_tpu_torch/build`` (the package's
+    directory cannot be written: a read-only install).  Makes no directory."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
+    name = f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
+    build_dir = BUILD_DIR if build_dir is None else build_dir
+    if (build_dir / name).exists() or _writable(build_dir):
+        return build_dir / name
+    return Path.home() / ".cache" / "rankaae_tpu_torch" / "build" / name
 
 
 def build_log(source: Path) -> str:
@@ -55,7 +72,7 @@ def compile_all(sources: Iterable[Path]) -> None:
         so = library_path(source)
         if so.exists():
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

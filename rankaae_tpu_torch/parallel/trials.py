@@ -360,11 +360,8 @@ def _run_wave(cfg, data: TrialData, n_trials: int, seed: int, device, lr_scales,
     seg = checkpoint_every or (cfg.max_epoch - start)
     for e0 in range(start, cfg.max_epoch, seg):
         e1 = min(e0 + seg, cfg.max_epoch)
-        logs = []
-        for epoch in range(e0, e1):
-            state, log = trainer.epoch_step(state, epoch, data)
-            logs.append(log)
-        log_parts.append(_host_logs(logs, n_trials))
+        state, logs = trainer.run_epochs(state, data, range(e0, e1))
+        log_parts.append(_host_logs(logs))
         if on_segment is not None:
             on_segment(e0, e1, log_parts[-1], SegmentBest(
                 state.best_epoch.cpu().numpy(), state.best_combined.cpu().numpy(),
@@ -375,13 +372,9 @@ def _run_wave(cfg, data: TrialData, n_trials: int, seed: int, device, lr_scales,
     return _collect_results(trainer, state, _concat_logs(log_parts))
 
 
-def _host_logs(logs: List[dict], t: int) -> Dict[str, np.ndarray]:
-    """Per-epoch logs (one dict per epoch, as ``epoch_step`` returns them)
-    as host arrays (T, E, ...)."""
-    return {k: np.broadcast_to(np.asarray([log[k] for log in logs], np.int32), (t, len(logs)))
-            .copy() if k == "epoch"
-            else torch.stack([log[k] for log in logs], dim=1).cpu().numpy()
-            for k in logs[0]}
+def _host_logs(logs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """``run_epochs``' logs (E, T, ...) as host arrays (T, E, ...)."""
+    return {k: np.ascontiguousarray(v.transpose(0, 1).cpu().numpy()) for k, v in logs.items()}
 
 
 def _concat_logs(parts: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

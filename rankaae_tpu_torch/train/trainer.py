@@ -13,9 +13,10 @@ same trajectory as in the JAX package.
 Where the JAX package scans, this package loops: an epoch is a Python loop
 over the full batches of a per-epoch permutation, then the trailing partial
 batch at its own size (``drop_last=False`` semantics); a run is a loop over
-epochs.  Everything an epoch computes stays on the device — losses, the
-quality metrics, the plateau schedulers, the best trackers — so the loop
-needs no host sync.  The Kendall loss goes through the CUDA kernel pair on
+epochs (:meth:`RankAAETrainer.run_epochs`, :meth:`RankAAETrainer.run`).
+Everything an epoch computes stays on the device — losses, the quality
+metrics, the plateau schedulers, the best trackers — so the loop needs no
+host sync.  The Kendall loss goes through the CUDA kernel pair on
 the card (``ops/kendall_cuda.py``).
 
 Where the JAX package ``vmap``s a trial axis, this trainer carries one:
@@ -869,8 +870,33 @@ class RankAAETrainer:
         }
         return state, log
 
+    def run_epochs(self, state: TrainState, data: TrialData, epochs):
+        """Every trial over the epoch indices ``epochs``, in order
+        (``rankaae_tpu/train/trainer.py:1058-1066``): the building block of
+        a whole run, a resume and a run in segments.  Returns the state and
+        the logs, each stacked epoch-first on the device: (E, T, ...), the
+        epoch index (E, T) int32."""
+        logs = []
+        for epoch in epochs:
+            state, log = self.epoch_step(state, int(epoch), data)
+            logs.append(log)
+        if not logs:
+            raise ValueError("run_epochs needs at least one epoch")
+        epoch = torch.tensor([log["epoch"] for log in logs], dtype=torch.int32,
+                             device=self.device)[:, None].repeat(1, self.trials)
+        return state, {k: epoch if k == "epoch" else torch.stack([log[k] for log in logs])
+                       for k in logs[0]}
+
+    def run(self, state: TrainState, data: TrialData, start_epoch: int = 0):
+        """The whole run from ``start_epoch`` (``rankaae_tpu/train/
+        trainer.py:1068-1079``): :meth:`run_epochs` over ``range(start_epoch,
+        cfg.max_epoch)``.  A state checkpointed after epoch k
+        (:meth:`state_tree`) and restored (:meth:`load_state_tree`) resumes
+        with ``start_epoch=k`` exactly where the uncut run goes on."""
+        return self.run_epochs(state, data, range(start_epoch, self.cfg.max_epoch))
+
     @staticmethod
     def final_metrics(logs):
         """metrics list of the last epoch (reference ``Trainer.train`` return)
-        of logs stacked over epochs (E, ...)."""
+        of logs stacked over epochs (E, ...), as :meth:`run` returns them."""
         return logs["metrics"][-1]

@@ -72,6 +72,15 @@ def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, Dict[str, torch
     return {m: _module_from_jax(params[m], batch_stats.get(m) or {}) for m in params}
 
 
+def from_jax_variables(variables: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """flax variables by role, ``{role: {"params": ..., "batch_stats": ...}}``
+    (what the JAX ``DualAAE.init`` returns for ``enc``, ``dec`` and ``dis``;
+    ``rankaae_tpu/models/registry.py:68-75``) -> ``{role: state_dict}``, as
+    :func:`from_jax`."""
+    return from_jax({role: v["params"] for role, v in variables.items()},
+                    {role: v.get("batch_stats") or {} for role, v in variables.items()})
+
+
 def _module_to_jax(module: nn.Module, sd: Optional[Mapping[str, torch.Tensor]] = None
                    ) -> Tuple[dict, dict]:
     params: dict = {}
