@@ -160,7 +160,18 @@ Phases (any failure exits non-zero and prints no result):
    ``get_dataloaders`` over the 7,000-row CSV at B 1024 feeding a seeded
    ``DualAAE`` of the normal form with ``DiscriminatorFC`` on the card,
    against the same module carried to the CPU by the weight bridge, K3 four
-   launches a batch; (c) ``native_available()`` printed.
+   launches a batch; (c) ``native_available()`` printed;
+14. the training-quality harness — ``python -m
+   rankaae_tpu_torch.tools.parity_experiment --mode ours`` (its ``main``) at
+   FC, 4 seeds x 6 epochs on 2,000 rows, once with ``--segment-epochs 3``
+   and once without: (a) every stat of the two records equal; (b) the
+   record's keys the JAX package's (``artifacts/parity_fused/
+   fc300_faithful/ours.json``) plus ``stack``, ``device``, ``seed_scheme``
+   and ``command``, every number finite, every trace 6 epochs long; (c) the
+   final weights of two seeds scored by ``_final_stats`` on the card and on
+   the CPU; (d) ``--mode aggregate`` against ``artifacts/parity_fc300``'s
+   reference seeds and ``tools/parity_gate.py`` against the JAX record
+   render; K1 and K2 as 6 epochs of 4 and 3 batches' worth a run.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
@@ -193,7 +204,9 @@ bit-identical, or phase 4's tolerances; 12b bit-identical to the same
 stacks, and phase 4's loss tolerance on the training losses against one
 wave (8b's); 12c
 phase 4's loss tolerance on every log; 12d exact; 13a bit-identical; 13b
-serving's atol 1e-4 on the reconstructions and discriminator outputs.
+serving's atol 1e-4 on the reconstructions and discriminator outputs; 14a
+equal; 14c the MSEs within 1e-4 relative, the Spearmans, Shapiro-W and the
+amplitude statistics within 1e-3 (a near-tied rank may flip).
 """
 from __future__ import annotations
 
@@ -2164,6 +2177,120 @@ def dual_aae_on_card(torch, np, fb, csv, card):
     return launches
 
 
+PARITY_SEEDS, PARITY_EPOCHS, PARITY_ROWS, PARITY_SEGMENT = 4, 6, 2000, 3   # phase 14
+PARITY_MSE_RTOL, PARITY_RANK_ATOL = 1e-4, 1e-3
+PARITY_JAX_RECORD = os.path.join("artifacts", "parity_fused", "fc300_faithful", "ours.json")
+PARITY_REF_DIR = os.path.join("artifacts", "parity_fc300")
+
+
+def _finite_leaves(np, tree):
+    if isinstance(tree, dict):
+        return all(_finite_leaves(np, v) for v in tree.values())
+    if isinstance(tree, list):
+        return all(_finite_leaves(np, v) for v in tree)
+    return bool(np.isfinite(tree))
+
+
+def parity_harness_on_card(torch, np, kc, tmp, card):
+    """Phase 14: the training-quality harness (``tools/parity_experiment.py``
+    ``--mode ours``) at FC, PARITY_SEEDS seeds x PARITY_EPOCHS epochs on
+    PARITY_ROWS rows, once with ``--segment-epochs PARITY_SEGMENT`` and once
+    without: (a) every stat of the two records equal (FC is bit-identical,
+    as 13a); (b) the record's keys those of the JAX package's record
+    (``PARITY_JAX_RECORD``) plus the port's four, every number finite, every
+    trace PARITY_EPOCHS long; (c) the final weights of two seeds scored by
+    ``_final_stats`` on the card and on the CPU: MSEs within
+    PARITY_MSE_RTOL relative, Spearman and Shapiro-W within
+    PARITY_RANK_ATOL (rank ties may flip); (d) ``--mode aggregate`` against
+    the reference's committed seeds and ``parity_gate`` against the JAX
+    record render.  K1 and K2 launch epochs x (batches + 1) and epochs x
+    batches a run (one launch for all seeds).  Returns the launches."""
+    from rankaae_tpu_torch.models.inference import InferenceModel
+    from rankaae_tpu_torch.tools import parity_experiment as pe
+    from rankaae_tpu_torch.tools import parity_gate
+
+    base = ["--mode", "ours", "--epochs", str(PARITY_EPOCHS), "--rows", str(PARITY_ROWS),
+            "--seeds", str(PARITY_SEEDS), "--device", "cuda"]
+    runs, walls = {}, {}
+    kc.fwd_launches = kc.bwd_launches = 0
+    for name, extra in (("uncut", []), ("segmented", ["--segment-epochs", str(PARITY_SEGMENT)])):
+        t0 = time.perf_counter()
+        runs[name] = pe.main(base + ["--json-dir", os.path.join(tmp, f"parity_{name}")] + extra)
+        walls[name] = time.perf_counter() - t0
+    launches = {"kendall_pair_sums": kc.fwd_launches, "kendall_grad_rows": kc.bwd_launches}
+    assert_tickets_clear(kc, "after 14a")
+    n_train = runs["uncut"].train_spec.shape[0]
+    n_batch = -(-n_train // runs["uncut"].cfg.batch_size)
+    want = {"kendall_pair_sums": 2 * PARITY_EPOCHS * (n_batch + 1),
+            "kendall_grad_rows": 2 * PARITY_EPOCHS * n_batch}
+    assert launches == want, (launches, want)
+    uncut, seg = runs["uncut"].record, runs["segmented"].record
+    # (a)
+    assert uncut["seeds"] == seg["seeds"], "segmented run differs from the uncut one"
+    # (b)
+    with open(os.path.join(HERE, PARITY_JAX_RECORD)) as f:
+        jax_rec = json.load(f)
+    extra_keys = {"stack", "device", "seed_scheme", "command"}
+    assert set(uncut) == set(jax_rec) | extra_keys, sorted(uncut)
+    js = jax_rec["seeds"][0]
+    for s in uncut["seeds"]:
+        assert set(s) == set(js), sorted(s)
+        for k, v in js.items():
+            if isinstance(v, dict):
+                assert set(s[k]) == set(v), (k, sorted(s[k]))
+        assert _finite_leaves(np, s), s
+        assert len(s["metrics_trace"]) == PARITY_EPOCHS and all(
+            len(s[k]) == PARITY_EPOCHS for k in ("val_recon_trace", "lr_recon_trace",
+                                                 "gain_trace"))
+        assert all(len(v) == PARITY_EPOCHS for v in s["component_traces"].values())
+    # (c)
+    run = runs["uncut"]
+    worst = {"mse_rel": 0.0, "rank": 0.0, "other": 0.0}
+    for i in (0, 1):
+        t = run.results.trial(i)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            m = InferenceModel(t["final_params"], t["final_batch_stats"], run.cfg, device=dev)
+            got[dev] = pe._final_stats(m.encode, m.decode, run.val_spec, run.val_aux,
+                                       train_spec=run.train_spec)
+        for k, v in got["cpu"].items():
+            a, b = np.asarray(got["cuda"][k], float), np.asarray(v, float)
+            if k.startswith("recon_mse"):
+                worst["mse_rel"] = max(worst["mse_rel"], float(np.max(np.abs(a - b) / np.abs(b))))
+            elif k in ("style_desc_rho", "shapiro_min", "coupling"):
+                worst["rank"] = max(worst["rank"], float(np.max(np.abs(a - b))))
+            else:
+                worst["other"] = max(worst["other"], float(np.max(np.abs(a - b))))
+    assert worst["mse_rel"] <= PARITY_MSE_RTOL and worst["rank"] <= PARITY_RANK_ATOL \
+        and worst["other"] <= PARITY_RANK_ATOL, worst
+    # (d)
+    agg_md, gate_md = os.path.join(tmp, "aggregate.md"), os.path.join(tmp, "gate.md")
+    pe.main(["--mode", "aggregate", "--json-dir", os.path.join(tmp, "parity_uncut"),
+             "--ref-json-dir", os.path.join(HERE, PARITY_REF_DIR), "--out", agg_md])
+    parity_gate.main(["--pair", "FC", os.path.join(HERE, PARITY_JAX_RECORD),
+                      os.path.join(tmp, "parity_uncut", "ours.json"),
+                      "--columns", "rankaae_tpu (TPU v5e)", "rankaae_tpu_torch (card)",
+                      "--out", gate_md])
+    with open(agg_md) as f:
+        agg = f.read()
+    with open(gate_md) as f:
+        gate = f.read()
+    assert "## Secondary: final-epoch models" in agg and "rankaae_tpu_torch (n=4)" in agg, agg
+    assert gate.count("OVERLAP") + gate.count("DISJOINT") >= 4, gate
+    print(f"14 parity harness: --mode ours at FC, {PARITY_SEEDS} seeds x {PARITY_EPOCHS} epochs "
+          f"on {PARITY_ROWS} rows (n_train {n_train}, {n_batch} batches an epoch): "
+          f"(a) --segment-epochs {PARITY_SEGMENT} and uncut records equal in every stat; "
+          f"(b) keys as {PARITY_JAX_RECORD} + {sorted(extra_keys)}, all finite, traces "
+          f"{PARITY_EPOCHS} long; (c) two seeds' final weights scored card vs CPU: "
+          f"{json.dumps(worst)} (MSE rtol {PARITY_MSE_RTOL}, Spearman/Shapiro atol "
+          f"{PARITY_RANK_ATOL}); (d) aggregate ({len(agg.splitlines())} lines) and gate "
+          f"({len(gate.splitlines())} lines) rendered; training walls "
+          f"{runs['uncut'].wall:.2f} / {runs['segmented'].wall:.2f} s, commands "
+          f"{walls['uncut']:.2f} / {walls['segmented']:.2f} s; K1/K2 launches {launches} "
+          f"(expected {want}) [{card}]")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2458,18 +2585,24 @@ def main() -> int:
         print(f"13c native_available(): {native_available()}")
         print(f"phases 1-13: {time.perf_counter() - t_start:.1f} s")
 
+        # ---- 14. the training-quality harness ---------------------------- #
+        t0 = time.perf_counter()
+        parity_launches = parity_harness_on_card(torch, np, kc, tmp9, card)
+        print(f"14: {time.perf_counter() - t0:.1f} s; phases 1-14: "
+              f"{time.perf_counter() - t_start:.1f} s")
+
     for name in ("kendall_pair_sums", "kendall_grad_rows"):
         launches[name] += conv_launches[name] + trial_launches[name] + recal_launches[name] \
             + sum(run[1][name] for run in resume_runs.values()) + normal_launches[name] \
             + qved_launches[name] + option_launches[name] + remat_launches[name] \
-            + run_launches[name]
+            + run_launches[name] + parity_launches[name]
     k3_launches += conv_launches["fused_block"] + conv_launches["fused_block_serve"] \
         + recal_launches["fused_block"] + sum(report_k3.values()) \
         + normal_launches["fused_block"] + option_launches["fused_block"] \
         + remat_launches["fused_block"] + dual_k3
     print(f"main-path launches: K1 {launches['kendall_pair_sums']}, K2 "
           f"{launches['kendall_grad_rows']} (phase 3, 7a, 8a, 9a, 9b, 10a, 10c, 11a, 11c, "
-          f"11d, 12a, 12b and 13a training), K3 {k3_launches} (phase 6 CLI, 7a training and "
+          f"11d, 12a, 12b, 13a and 14a training), K3 {k3_launches} (phase 6 CLI, 7a training and "
           f"CLI, 9b training and amplitude gains, 9c reports, 10a, 11a, 11c, 11d and 12a "
           f"training, 11d CLI, 13b DualAAE)")
 
@@ -2497,7 +2630,7 @@ def main() -> int:
           "or their gradient rows, nor the fused EncodingBlock (two convs, BNs, PReLUs, "
           "residual and excitation MLP); K3's row is at the serving shape C 4, B 1024; "
           "launches are the main paths' (phases 3, 6, 7a, 8a, 9a, 9b, 9c, 10a, 10c, 11a, "
-          "11c, 11d, 12a, 12b, 13a and 13b)")
+          "11c, 11d, 12a, 12b, 13a, 13b and 14a)")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

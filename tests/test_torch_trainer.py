@@ -13,8 +13,9 @@
   1e-8, every step from identical inputs is within 1e-4 while the median
   autoencoder weight still moves by more than 1e-3.
 * A CPU smoke of the ``Trainer.from_data(...).train()`` facade.
-* The package rules: nothing of ``jax``, ``rankaae_tpu`` or ``msgpack`` is
-  imported (the runner and ``train_sc`` included), the entry points
+* The package rules: nothing of ``jax``, ``rankaae_tpu``, ``msgpack`` or the
+  JAX package's ``scripts`` is imported (the runner, ``train_sc`` and the
+  ``tools/`` included), the entry points
   (training, recalibration, serving and the report) do not fall back to
   the CPU; every trainer option builds (the fused and joint protocols,
   ``flat_optim``, bfloat16), and joint without GRL is refused.
@@ -158,7 +159,11 @@ def test_package_imports_nothing_of_jax():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'rankaae_tpu', 'msgpack',\n"
-        "                              'matplotlib', 'seaborn', 'sklearn')]\n"
+        "                              'matplotlib', 'seaborn', 'sklearn', 'scripts')]\n"
+        "import os\n"
+        "scripts = os.path.join(os.getcwd(), 'scripts') + os.sep\n"
+        "bad += [m for m, mod in list(sys.modules.items()) if getattr(mod, '__file__', None)\n"
+        "        and os.path.abspath(mod.__file__).startswith(scripts)]\n"
         "assert len(names) >= 20, names\n"
         "assert not bad, bad\n"
     )
@@ -170,4 +175,4 @@ def test_package_imports_nothing_of_jax():
              for a in node.names}
     roots |= {node.module.split(".")[0] for node in ast.walk(tree)
               if isinstance(node, ast.ImportFrom) and node.module}
-    assert not roots & {"jax", "jaxlib", "flax", "rankaae_tpu", "msgpack"}, roots
+    assert not roots & {"jax", "jaxlib", "flax", "rankaae_tpu", "msgpack", "scripts"}, roots
