@@ -221,6 +221,26 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
+#: the port's launch counters (``rankaae_tpu_torch/utils/tracing.py``) by the
+#: kernel names this script prints
+LAUNCH_COUNTERS = {"kendall_pair_sums": "kendall.fwd_launches",
+                   "kendall_grad_rows": "kendall.bwd_launches", "fused_block": "k3.launches"}
+
+
+def zero_launches(*kernels):
+    """Zero the launch counters of ``kernels`` (all three where none is named)."""
+    from rankaae_tpu_torch.utils import tracing
+
+    tracing.reset_counters(*(LAUNCH_COUNTERS[k] for k in kernels or LAUNCH_COUNTERS))
+
+
+def read_launches(*kernels):
+    """The launches of ``kernels`` (all three where none is named) since
+    their counters were last zeroed."""
+    from rankaae_tpu_torch.utils import tracing
+
+    return {k: tracing.counter(LAUNCH_COUNTERS[k]) for k in kernels or LAUNCH_COUNTERS}
+
 # H100 SXM published peaks (dense): HBM bytes/s and fp32 non-tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -474,11 +494,11 @@ def serve_normal(torch, np, fb, cfg_path, tmp, card):
     bundle = save_model_bundle(os.path.join(tmp, "normal.mpk"), *to_jax(models), cfg)
     out = os.path.join(tmp, "served")
 
-    fb.launches = 0
+    zero_launches("fused_block")
     t0 = time.perf_counter()
     serve.main([bundle, csv, out, "--batch-size", "1024"])
     cli_s = time.perf_counter() - t0
-    launches = fb.launches
+    launches = read_launches()["fused_block"]
     styles = np.loadtxt(out + "_styles.txt")
     recon = np.loadtxt(out + "_recon.txt")
     assert styles.shape == (7000, cfg.nstyle) and recon.shape == (7000, 256), \
@@ -508,10 +528,11 @@ def serve_normal(torch, np, fb, cfg_path, tmp, card):
         else:
             ccfg = cfg.replace(ae_form="compact")
             bench_model = InferenceModel(*to_jax(seeded_models(torch, ccfg, 2, "cpu")), ccfg)
-        fb.launches = 0
+        zero_launches("fused_block")
         res = serve.device_benchmark(bench_model, batch_size=BENCH_B, iters=BENCH_ITERS)
-        assert fb.launches == per_round * (BENCH_ITERS + 1), (form, fb.launches)
-        res["k3_launches"] = fb.launches
+        k3 = read_launches()["fused_block"]
+        assert k3 == per_round * (BENCH_ITERS + 1), (form, k3)
+        res["k3_launches"] = k3
         print(f"serve bench ({form}): {json.dumps(res)} [{card}]")
     res = serve.host_benchmark(model, batch_size=BENCH_B, n_batches=16)
     print(f"serve host bench (normal): {json.dumps(res)} [{card}]")
@@ -742,11 +763,10 @@ def train_conv(torch, np, kc, fb, cfg_path, tmp, card, n_batch):
         params.update({**overrides, "max_epoch": epochs})
         trainer = Trainer.from_data(csv, config_parameters=params, device="cuda",
                                     work_dir=work_dir, verbose=False)
-        kc.fwd_launches = kc.bwd_launches = fb.launches = 0
+        zero_launches()
         metrics = trainer.train()
         torch.cuda.synchronize()
-        launches = {"kendall_pair_sums": kc.fwd_launches,
-                    "kendall_grad_rows": kc.bwd_launches, "fused_block": fb.launches}
+        launches = read_launches()
         for key, values in trainer.logs.items():
             assert np.all(np.isfinite(values)), (overrides, key, values)
         assert np.all(np.isfinite(metrics)), (overrides, metrics)
@@ -783,11 +803,11 @@ def train_conv(torch, np, kc, fb, cfg_path, tmp, card, n_batch):
     final = os.path.join(work, "final.mpk")
     out = {}
     for dev in ("cuda", "cpu"):
-        fb.launches = 0
+        zero_launches("fused_block")
         serve.main([final, csv, os.path.join(tmp, f"served_{dev}"), "--batch-size", "1024",
                     "--device", dev])
         if dev == "cuda":
-            launches["fused_block_serve"] = fb.launches
+            launches["fused_block_serve"] = read_launches()["fused_block"]
         out[dev] = [np.loadtxt(os.path.join(tmp, f"served_{dev}_{k}.txt"))
                     for k in ("styles", "recon")]
     assert launches["fused_block_serve"] == 7 * 4, launches     # 7 chunks x 4 blocks
@@ -853,12 +873,12 @@ def train_trials(torch, np, kc, cfg_path, tmp, card, expect):
     with open(os.path.join(tmp, "cfg.yaml"), "w") as f:
         yaml.safe_dump(raw, f)
     trials = raw["trials"]
-    kc.fwd_launches = kc.bwd_launches = 0
+    zero_launches("kendall_pair_sums", "kendall_grad_rows")
     t0 = time.perf_counter()
     train_sc.main(["-c", "cfg.yaml", "-w", tmp])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"kendall_pair_sums": kc.fwd_launches, "kendall_grad_rows": kc.bwd_launches}
+    launches = read_launches("kendall_pair_sums", "kendall_grad_rows")
     assert_tickets_clear(kc, "after train_sc")
     assert launches == expect, (launches, expect)
     assert os.path.isfile(os.path.join(tmp, "main_process_message.txt"))
@@ -1029,14 +1049,12 @@ def run_train_sc(torch, kc, fb, work, device, *flags):
     to 0 just before)."""
     from rankaae_tpu_torch.cli import train_sc
 
-    kc.fwd_launches = kc.bwd_launches = fb.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     train_sc.main(["-c", "cfg.yaml", "-w", work, "--device", device, *flags])
     if device == "cuda":
         torch.cuda.synchronize()
-    return time.perf_counter() - t0, {"kendall_pair_sums": kc.fwd_launches,
-                                      "kendall_grad_rows": kc.bwd_launches,
-                                      "fused_block": fb.launches}
+    return time.perf_counter() - t0, read_launches()
 
 
 def bundle_diff(np, a, b, where=False):
@@ -1202,14 +1220,14 @@ def report_card_vs_cpu(torch, np, fb, work, cpu_work, label, card, figures, devi
     shutil.copytree(work, cpu_work)
     walls, reports = {}, {}
     for side, d, w in (("card", device, work), ("cpu", "cpu", cpu_work)):
-        fb.launches = 0
+        zero_launches("fused_block")
         t0 = time.perf_counter()
         generate(w, Parameters.from_yaml(os.path.join(w, "cfg.yaml")), device=d,
                  figures=figures and side == "card")
         if side == "card":
             if d == "cuda":
                 torch.cuda.synchronize()
-            k3 = fb.launches
+            k3 = read_launches()["fused_block"]
         walls[side] = time.perf_counter() - t0
         with open(os.path.join(w, "report.json")) as f:
             reports[side] = json.load(f)
@@ -1674,11 +1692,11 @@ def bf16_on_card(torch, np, kc, fb, root, csv, cfg_path, card, expect, pcfg):
         final = os.path.join(work, "training", "job_1", "final.mpk")
         out = {}
         for dev in ("cuda", "cpu"):
-            fb.launches = 0
+            zero_launches("fused_block")
             serve.main([final, csv, os.path.join(root, f"bf16_{form}_{dev}"),
                         "--batch-size", "1024", "--device", dev])
             if dev == "cuda":
-                total["fused_block"] += fb.launches
+                total["fused_block"] += read_launches()["fused_block"]
             out[dev] = [np.loadtxt(os.path.join(root, f"bf16_{form}_{dev}_{k}.txt"))
                         for k in ("styles", "recon")]
         z_err = np.abs(out["cuda"][0] - out["cpu"][0]).max()
@@ -1845,16 +1863,14 @@ def rank_main(argv) -> int:
     work, out = argv
     kc.build()
     fb.build()
-    kc.fwd_launches = kc.bwd_launches = fb.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     train_sc.main(["-c", "cfg.yaml", "-w", work, "--device", "cuda:0"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rank = int(os.environ["RANK"])
     with open(os.path.join(out, f"rank_{rank}.json"), "w") as f:
-        json.dump({"wall": wall, "launches": {"kendall_pair_sums": kc.fwd_launches,
-                                              "kendall_grad_rows": kc.bwd_launches,
-                                              "fused_block": fb.launches}}, f)
+        json.dump({"wall": wall, "launches": read_launches()}, f)
     return 0
 
 
@@ -2086,7 +2102,7 @@ def run_resumed_on_card(torch, np, kc, cfg, splits, tmp, card, expect):
         return RankAAETrainer(rcfg, n_train=splits[0].shape[0], n_val=splits[2].shape[0],
                               trials=rcfg.trials, device="cuda")
 
-    kc.fwd_launches = kc.bwd_launches = 0
+    zero_launches("kendall_pair_sums", "kendall_grad_rows")
     t0 = time.perf_counter()
     uncut = trainer()
     s_uncut, logs = uncut.run(uncut.init_state(0), data)
@@ -2100,7 +2116,7 @@ def run_resumed_on_card(torch, np, kc, cfg, splits, tmp, card, expect):
     s_res, rest = resumed.run(s_res, data, start_epoch=extra["epoch"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"kendall_pair_sums": kc.fwd_launches, "kendall_grad_rows": kc.bwd_launches}
+    launches = read_launches("kendall_pair_sums", "kendall_grad_rows")
     assert_tickets_clear(kc, "after 13a")
     want = {k: 2 * v for k, v in expect.items()}
     assert launches == want, (launches, want)
@@ -2150,13 +2166,13 @@ def dual_aae_on_card(torch, np, fb, csv, card):
     cpu = DualAAE(False, Encoder, Decoder, device="cpu").load_jax(
         {r: {"params": params[r], "batch_stats": stats[r]} for r in params})
     batches = list(train)
-    fb.launches = 0
+    zero_launches("fused_block")
     t0 = time.perf_counter()
     with torch.no_grad():
         outs = [model(spec.to("cuda")) for spec, _ in batches]
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    launches = fb.launches
+    launches = read_launches()["fused_block"]
     want = NORMAL_FUSED_BLOCKS * len(batches)
     assert launches == want, (launches, want)
     err = {"reconstruction": 0.0, "discriminator": 0.0}
@@ -2212,12 +2228,12 @@ def parity_harness_on_card(torch, np, kc, tmp, card):
     base = ["--mode", "ours", "--epochs", str(PARITY_EPOCHS), "--rows", str(PARITY_ROWS),
             "--seeds", str(PARITY_SEEDS), "--device", "cuda"]
     runs, walls = {}, {}
-    kc.fwd_launches = kc.bwd_launches = 0
+    zero_launches("kendall_pair_sums", "kendall_grad_rows")
     for name, extra in (("uncut", []), ("segmented", ["--segment-epochs", str(PARITY_SEGMENT)])):
         t0 = time.perf_counter()
         runs[name] = pe.main(base + ["--json-dir", os.path.join(tmp, f"parity_{name}")] + extra)
         walls[name] = time.perf_counter() - t0
-    launches = {"kendall_pair_sums": kc.fwd_launches, "kendall_grad_rows": kc.bwd_launches}
+    launches = read_launches("kendall_pair_sums", "kendall_grad_rows")
     assert_tickets_clear(kc, "after 14a")
     n_train = runs["uncut"].train_spec.shape[0]
     n_batch = -(-n_train // runs["uncut"].cfg.batch_size)
@@ -2353,10 +2369,9 @@ def main() -> int:
               f"{cfg.batch_size} + {trailing}), n_val {n_val}")
         trainer = Trainer.from_data(csv, config_parameters=params, device="cuda",
                                     work_dir=tmp, verbose=False)
-        kc.fwd_launches = kc.bwd_launches = 0
+        zero_launches("kendall_pair_sums", "kendall_grad_rows")
         metrics = trainer.train()
-        launches = {"kendall_pair_sums": kc.fwd_launches,
-                    "kendall_grad_rows": kc.bwd_launches}
+        launches = read_launches("kendall_pair_sums", "kendall_grad_rows")
         torch.cuda.synchronize()
         assert_tickets_clear(kc, "after training")
         with open(os.path.join(tmp, "losses.csv")) as f:

@@ -22,7 +22,10 @@ around the whole run: the trials train together, so a per-trial deadline
 and a total one coincide.  ``--lr-sweep LO,HI`` gives trial i the learning
 rates scaled by ``geomspace(LO, HI, trials)[i]``.  ``--debug-nans`` turns
 on autograd's anomaly detection; ``--profile-dir`` writes a
-``torch.profiler`` trace of the run there.
+``torch.profiler`` trace of the run there, and beside it ``spans.json``:
+the program's spans of the run (``utils/tracing.py``: name, parent, host
+start and end ns on the trace's clock, device-stream ms), its counters,
+and the totals per span name (count, host, self and device ms).
 
 ``--checkpoint-every N`` saves the whole train state into
 ``work_dir/train_state`` every N epochs (``parallel/trials.py``), appends
@@ -55,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import logging
 import os
 import signal
@@ -69,6 +73,7 @@ from rankaae_tpu_torch.models.recalibrate import amplitude_gain, recalibrate_bat
 from rankaae_tpu_torch.parallel import multihost
 from rankaae_tpu_torch.parallel.trials import SegmentBest, TrialResults, run_trials
 from rankaae_tpu_torch.train.trainer import TrialData
+from rankaae_tpu_torch.utils import tracing
 from rankaae_tpu_torch.utils.checkpoint import save_model_bundle
 from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
 from rankaae_tpu_torch.utils.logging import append_losses_csv, create_logger, write_losses_csv
@@ -233,8 +238,8 @@ def train_from_config(work_dir: str, params: Parameters, seed: int = 0,
 
 @contextlib.contextmanager
 def _profile(profile_dir):
-    """A ``torch.profiler`` trace of the block into ``profile_dir``, or
-    nothing when it is None."""
+    """A ``torch.profiler`` trace of the block and its spans into
+    ``profile_dir``, or nothing when it is None."""
     if profile_dir is None:
         yield
         return
@@ -242,9 +247,12 @@ def _profile(profile_dir):
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
+    tracing.reset()
     with torch.profiler.profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(profile_dir, "train_sc.trace.json"))
+    with open(os.path.join(profile_dir, "spans.json"), "w") as f:
+        json.dump(tracing.report(tracing.trace_start_ns(prof)), f)
 
 
 def main(argv=None):

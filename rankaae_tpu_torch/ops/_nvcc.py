@@ -8,7 +8,9 @@ source and the flags, so an unchanged source is never rebuilt and an edited
 one always is.  nvcc's output (the ptxas register, shared-memory and spill
 report) is kept beside each library and read back by :func:`build_log`.  :func:`compile_all`
 starts one ``nvcc`` per source at once and waits for all of them;
-:func:`load` compiles one source if needed and loads it.  Nothing here runs
+:func:`load` compiles one source if needed and loads it.  Both add their
+seconds to the counter ``setup.kernel_load_s`` and each ``nvcc`` they
+start to ``setup.kernel_builds`` (``utils/tracing.py``).  Nothing here runs
 when the module is imported.
 """
 from __future__ import annotations
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Iterable, Optional
+
+from rankaae_tpu_torch.utils import tracing
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -64,9 +68,14 @@ def build_log(source: Path) -> str:
     return library_path(source).with_suffix(".log").read_text()
 
 
+@tracing.timed("setup.kernel_load_s")
 def compile_all(sources: Iterable[Path]) -> None:
     """Compile every source whose library is not built yet, one ``nvcc``
     process per source, all running at once; raise if any fails."""
+    _compile(sources)
+
+
+def _compile(sources: Iterable[Path]) -> None:
     jobs = []
     for source in sources:
         so = library_path(source)
@@ -76,6 +85,7 @@ def compile_all(sources: Iterable[Path]) -> None:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        tracing.count("setup.kernel_builds")
         jobs.append((source, so, tmp, proc))
     failed = []
     for source, so, tmp, proc in jobs:
@@ -93,7 +103,8 @@ def compile_all(sources: Iterable[Path]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
+@tracing.timed("setup.kernel_load_s")
 def load(source: Path) -> ctypes.CDLL:
     """The loaded library of ``source``, compiled first if needed."""
-    compile_all([source])
+    _compile([source])
     return ctypes.CDLL(str(library_path(source)))

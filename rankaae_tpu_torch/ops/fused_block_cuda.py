@@ -18,7 +18,8 @@ parameter with the trial axis leading, one :func:`fused_block` per trial on
 the trial's contiguous copy of x and its weight slices, so a stacked block
 is T launches of K3.  K3 has no backward, so on either device it
 raises when autograd would need one (grad enabled and an input that
-requires grad).  ``launches`` counts the kernel launches.
+requires grad).  The counter ``k3.launches`` (``utils/tracing.py``) counts
+the kernel launches (plain calls not counted).
 """
 from __future__ import annotations
 
@@ -31,15 +32,13 @@ import torch
 import torch.nn.functional as F
 
 from rankaae_tpu_torch.ops import _nvcc
+from rankaae_tpu_torch.utils import tracing
 
 SOURCE = _nvcc.CSRC / "fused_block.cu"
 L, K, E = 256, 11, 2          # compile-time constants of the kernel
 PAD = (K - 1) // 2
 CHANNELS = (2, 4)             # the instantiated channel counts
 EPS = 1e-5
-
-#: kernel launches made through :func:`fused_block` (plain calls not counted)
-launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -152,7 +151,6 @@ def fused_block_plain(x, bn1_mean, bn1_var, w1, b1, a1, bn2_mean, bn2_var, w2, b
 def fused_block(x, bn1_mean, bn1_var, w1, b1, a1, bn2_mean, bn2_var, w2, b2, a2,
                 fc1_w, fc1_b, ae1, fc2_w, fc2_b, ae2):
     """K3 on a CUDA tensor, its plain version on a CPU tensor."""
-    global launches
     args = (bn1_mean, bn1_var, w1, b1, a1, bn2_mean, bn2_var, w2, b2, a2,
             fc1_w, fc1_b, ae1, fc2_w, fc2_b, ae2)
     _check(x, args)
@@ -170,7 +168,7 @@ def fused_block(x, bn1_mean, bn1_var, w1, b1, a1, bn2_mean, bn2_var, w2, b2, a2,
                          torch._C._cuda_getCurrentRawStream(x.get_device()))
     if rc != 0:
         raise RuntimeError(f"fused_block launch failed: {lib.fused_block_error_string(rc).decode()}")
-    launches += 1
+    tracing.count("k3.launches")
     return out
 
 

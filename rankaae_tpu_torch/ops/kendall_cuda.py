@@ -20,8 +20,9 @@ one ``torch.autograd.Function`` (counterpart of
 Each wrapper checks its tensors and on a CPU tensor computes its kernel's
 plain version (for the tests; ``chip_smoke.py`` holds the kernels against the
 same functions on the card).  On a CUDA tensor it makes one allocation, from
-which it carves every output and scratch buffer.  ``fwd_launches`` and
-``bwd_launches`` count the kernel launches.
+which it carves every output and scratch buffer.  The counters
+``kendall.fwd_launches`` and ``kendall.bwd_launches`` (``utils/tracing.py``)
+count the kernel launches (plain-version calls not counted).
 
 The shared library is built with ``nvcc`` on first use, from the source in
 this package, by ``ops/_nvcc.py`` and loaded with ``ctypes``.
@@ -35,16 +36,13 @@ import torch
 
 from rankaae_tpu_torch.ops import _nvcc
 from rankaae_tpu_torch.ops import kendall as plain
+from rankaae_tpu_torch.utils import tracing
 
 SOURCE = _nvcc.CSRC / "kendall.cu"
 MAX_T = 65535          # trials: the grid's z extent, and one ticket word each
 MAX_B = 46340          # B * B must fit in int32 (the per-block pair counts)
 MAX_K = 32             # kMaxK in kendall.cu
 SLOT_WORDS = 4         # kendall.cu's Slot: [pos, neg] sums and counts, 16 bytes
-
-#: kernel launches made through the wrappers (plain-version calls not counted)
-fwd_launches = 0
-bwd_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _tile_rows = 0
@@ -162,7 +160,6 @@ def _tickets_on(device: torch.device, stream: int) -> torch.Tensor:
 def pair_sums(descriptors, styles, activate: bool, rows: bool = False):
     """K1 on a CUDA tensor, its plain version on a CPU tensor.  Returns
     (sums, cnts, w, loss), and with ``rows`` also the row sums P and N."""
-    global fwd_launches
     t, b, k = _check_pair(descriptors, styles)
     if styles.device.type == "cpu":
         return pair_sums_plain(descriptors, styles, activate, rows)
@@ -190,7 +187,7 @@ def pair_sums(descriptors, styles, activate: bool, rows: bool = False):
         sums.data_ptr(), cnts.data_ptr(), w.data_ptr(), base,
         base + 4 * (o_cnts + 2 * tk) if rows else None, stream)
     _raise_on(lib, rc, "kendall_pair_sums")
-    fwd_launches += 1
+    tracing.count("kendall.fwd_launches")
     if rows:
         o_pos = o_cnts + 2 * tk
         return (sums, cnts, w, loss, ints.as_strided((t, b, k), (b * k, k, 1), o_pos),
@@ -213,7 +210,6 @@ def grad_rows_plain(pos_rows, neg_rows, w, g):
 
 def grad_rows(pos_rows, neg_rows, w, g):
     """K2 on a CUDA tensor, its plain version on a CPU tensor."""
-    global bwd_launches
     if pos_rows.dim() != 3:
         raise ValueError(f"pos_rows must be (T, B, K), got shape {tuple(pos_rows.shape)}")
     t, b, k = pos_rows.shape
@@ -233,7 +229,7 @@ def grad_rows(pos_rows, neg_rows, w, g):
         pos_rows.data_ptr(), neg_rows.data_ptr(), w.data_ptr(), g.data_ptr(), t, b, k,
         _norm(b, k), grad.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index))
     _raise_on(lib, rc, "kendall_grad_rows")
-    bwd_launches += 1
+    tracing.count("kendall.bwd_launches")
     return grad
 
 

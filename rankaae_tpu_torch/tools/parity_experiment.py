@@ -276,10 +276,10 @@ def run_ours(cfg_dict: Dict[str, Any], csv_path: str, n_seeds: int, device,
 def launch_counts() -> Dict[str, int]:
     """The port's kernel launches so far in this process: K1 and K2 (the
     Kendall pair sums and gradient rows) and K3 (the fused block)."""
-    from rankaae_tpu_torch.ops import fused_block_cuda, kendall_cuda
+    from rankaae_tpu_torch.utils import tracing
 
-    return {"K1": kendall_cuda.fwd_launches, "K2": kendall_cuda.bwd_launches,
-            "K3": fused_block_cuda.launches}
+    return {"K1": tracing.counter("kendall.fwd_launches"),
+            "K2": tracing.counter("kendall.bwd_launches"), "K3": tracing.counter("k3.launches")}
 
 
 def _rounded(values) -> List[float]:

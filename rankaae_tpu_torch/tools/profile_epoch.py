@@ -21,8 +21,10 @@ kernels, the device's busy time (the union of the kernels' intervals:
 cuDNN runs some kernels on streams of its own, so the sum can exceed the
 wall time), the idle share (1 - busy / wall), kernel launches, and the
 kernels with the most device time, the port's own kernels (Kendall, and
-the fused block in the validation decodes of the conv forms) among them.
-Needs a CUDA device.
+the fused block in the validation decodes of the conv forms) among them,
+and the program's spans of the epoch totalled per name (``span_totals``:
+count, host, self and device-stream ms; ``utils/tracing.py``).  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import torch
 from rankaae_tpu_torch.data.dataset import load_split_arrays
 from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes_csv
 from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+from rankaae_tpu_torch.utils import tracing
 from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -88,11 +91,13 @@ def profile_epoch(config: str = os.path.join(REPO, "example", "fix_config.yaml")
         torch.cuda.synchronize()
         warmup_seconds.append(time.perf_counter() - t0)
 
+    tracing.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = core.epoch_step(state, warmup, data)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    span_totals = tracing.totals(tracing.newest(tracing.spans(), "epoch"))
 
     return {"card": card, "ae_form": core.cfg.ae_form,
             "use_cnn_discriminator": core.cfg.use_cnn_discriminator,
@@ -100,7 +105,8 @@ def profile_epoch(config: str = os.path.join(REPO, "example", "fix_config.yaml")
             "activation_dtype": core.cfg.activation_dtype, "trials": trials,
             "epoch": warmup, "n_train": core.n_train, "batches": core.n_batch,
             "warmup_seconds": warmup_seconds,
-            **kernel_summary(prof, wall_ms, ("pair_sums", "grad_rows", "fused_block"), top)}
+            **kernel_summary(prof, wall_ms, ("pair_sums", "grad_rows", "fused_block"), top),
+            "span_totals": span_totals}
 
 
 def kernel_summary(prof, wall_ms: float, ours: tuple, top: int = 15) -> dict:

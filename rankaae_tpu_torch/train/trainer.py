@@ -45,6 +45,12 @@ package's options:
 * ``activation_dtype: bfloat16``: the modules compute in bfloat16 as the
   registry sets them (``models/primitives.py``); parameters, moments,
   statistics, losses and the validation metrics stay float32.
+
+Spans (``utils/tracing.py``) mark the work where it happens: ``epoch``,
+each ``batch``, each loss's ``step.<optimizer>``, its ``backward`` (the one
+``autograd.grad`` site) and its optimizer ``update``, and ``validate``; the
+counter ``setup.trainer_s`` adds the seconds of ``__init__`` and
+:meth:`RankAAETrainer.init_state`.
 """
 from __future__ import annotations
 
@@ -74,6 +80,7 @@ from rankaae_tpu_torch.optim.optimizers import (
     make_optimizer,
 )
 from rankaae_tpu_torch.optim.plateau import PlateauState, plateau_init, plateau_update
+from rankaae_tpu_torch.utils import tracing
 from rankaae_tpu_torch.utils.config import TrainConfig
 from rankaae_tpu_torch.utils.device import resolve_device
 from rankaae_tpu_torch.utils.sampler import TrialSampler
@@ -170,6 +177,7 @@ class RankAAETrainer:
     """Trainer for one config and ``trials`` stacked trials, on ``device``
     (default ``"cuda"``; raises if no CUDA device is present)."""
 
+    @tracing.timed("setup.trainer_s")
     def __init__(self, cfg: TrainConfig, n_train: int, n_val: int, trials: int = 1,
                  device=None):
         cfg.validate()
@@ -246,6 +254,7 @@ class RankAAETrainer:
         return {key: [torch.zeros_like(p) for p in self.models[key].parameters()]
                 for key in JOINT_KEYS}
 
+    @tracing.spanned("backward")
     def _grads(self, name: str, loss: torch.Tensor, retain_graph: bool = False
                ) -> List[torch.Tensor]:
         """The gradient of the trials' summed ``loss`` (T,) over optimizer
@@ -267,6 +276,7 @@ class RankAAETrainer:
         return {k: {n: t.detach().clone() for n, t in m.state_dict().items()}
                 for k, m in self.models.items()}
 
+    @tracing.timed("setup.trainer_s")
     def init_state(self, seed: int = 0, lr_scales=None, hparams=None) -> TrainState:
         """Fresh weights (torch-default init, trial t drawn from the run's
         generator t, seeded ``seed + t``) and fresh optimizer, scheduler and
@@ -444,8 +454,10 @@ class RankAAETrainer:
     def _opt_step(self, name: str, loss: torch.Tensor, state: TrainState) -> None:
         """Gradient of the trials' summed ``loss`` (T,) over the optimizer's
         parameter subset, then its update (in place)."""
-        self.opts[name].update(self._grads(name, loss), state.opt[name], self._params(name),
-                               self._lr(name, state))
+        grads = self._grads(name, loss)
+        with tracing.span("update"):
+            self.opts[name].update(grads, state.opt[name], self._params(name),
+                                   self._lr(name, state))
 
     def _label_loss(self, pred, label: int):
         """The discriminator's loss (T,) on ``pred`` against one label for
@@ -477,6 +489,7 @@ class RankAAETrainer:
     # per-batch training protocol (reference trainer.py:103-204)
     # ------------------------------------------------------------------ #
 
+    @tracing.spanned("batch")
     def _train_batch(self, state: TrainState, spec, aux, alpha, epoch: int,
                      sampler: Optional[TrialSampler] = None):
         """One batch of every trial: ``spec`` (T, B, dim_in), ``aux``
@@ -523,6 +536,7 @@ class RankAAETrainer:
             "mi": mi_loss.detach(),
         }
 
+    @tracing.spanned("step.correlation")
     def _correlation_step(self, state: TrainState, spec_in, aux, sampler):
         """The Kendall step (trainer.py:152-161); returns its loss (T,)."""
         styles = self.models["enc"](spec_in, sampler=sampler)
@@ -531,6 +545,7 @@ class RankAAETrainer:
         self._opt_step("correlation", loss, state)
         return loss
 
+    @tracing.spanned("step.reconstruction")
     def _reconstruction_step(self, state: TrainState, spec_in, sampler):
         """The reconstruction step (trainer.py:163-172); returns its loss."""
         enc, dec, cfg = self.models["enc"], self.models["dec"], self.cfg
@@ -540,6 +555,7 @@ class RankAAETrainer:
         self._opt_step("reconstruction", loss, state)
         return loss
 
+    @tracing.spanned("step.mutual_info")
     def _mutual_info_step(self, state: TrainState, b: int, sampler):
         """The mutual-info step (trainer.py:174-186) after the dead
         re-encode: decode and re-encode z ~ N(0, I) at the actual batch
@@ -550,6 +566,7 @@ class RankAAETrainer:
         self._opt_step("mutual_info", loss, state)
         return loss
 
+    @tracing.spanned("step.smoothness")
     def _smoothness_step(self, state: TrainState, spec_in, sampler):
         """The smoothness step (trainer.py:188-200): the decoder alone, on
         styles of a stats-updating encode; returns its loss."""
@@ -559,6 +576,7 @@ class RankAAETrainer:
         self._opt_step("smoothness", loss, state)
         return loss
 
+    @tracing.spanned("step.adversarial")
     def _adversarial_step(self, state: TrainState, spec_in, z_real, beta, sampler):
         """The GRL step (``trainer.py:334-373`` in the JAX package): one
         backward trains the discriminator and, reversed, the encoder."""
@@ -602,6 +620,7 @@ class RankAAETrainer:
         return (self._discriminator_step(state, spec_in, z_real, sampler),
                 self._generator_step(state, spec_in, sampler))
 
+    @tracing.spanned("step.discriminator")
     def _discriminator_step(self, state: TrainState, spec_in, z_real, sampler):
         """The D step: the prior's draws labelled real, the styles of a
         stats-updating encode (detached) fake; returns its loss (T,)."""
@@ -614,6 +633,7 @@ class RankAAETrainer:
         self._opt_step("discriminator", dis_loss, state)
         return dis_loss
 
+    @tracing.spanned("step.generator")
     def _generator_step(self, state: TrainState, spec_in, sampler):
         """The G step: the encoder's styles labelled real by the
         discriminator; returns its loss (T,)."""
@@ -683,7 +703,8 @@ class RankAAETrainer:
             with torch.no_grad():
                 base = self._params(name)
                 new = [p.detach().clone() for p in base]
-                self.opts[name].update(grads, state.opt[name], new, self._lr(name, state))
+                with tracing.span("update"):
+                    self.opts[name].update(grads, state.opt[name], new, self._lr(name, state))
                 for d, n, p in zip(self._params(name, of=delta), new, base):
                     d.add_(n.sub_(p))           # delta += (new - base), :673-689
         with torch.no_grad():
@@ -732,6 +753,7 @@ class RankAAETrainer:
     # validation (reference trainer.py:206-304)
     # ------------------------------------------------------------------ #
 
+    @tracing.spanned("validate")
     @torch.no_grad()
     def _validate(self, state: TrainState, data: TrialData, alpha,
                   sampler: Optional[TrialSampler] = None):
@@ -787,6 +809,7 @@ class RankAAETrainer:
                 for name, x in m.state_dict().items():
                     best[key][name].copy_(torch.where(_lead(take, x), x, best[key][name]))
 
+    @tracing.spanned("epoch")
     def epoch_step(self, state: TrainState, epoch: int, data: TrialData):
         """One epoch of every trial (``rankaae_tpu/train/trainer.py:936-1056``);
         the log's values have the trial axis leading."""

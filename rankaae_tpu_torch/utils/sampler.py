@@ -14,7 +14,9 @@ and a CUDA generator do too).  A :class:`TrialSampler`'s generators are
 stateful, so a resumed run is exact only if their states are saved and
 restored (:meth:`TrialSampler.get_state`, :meth:`TrialSampler.set_state`):
 a CPU generator's state is its Mersenne-Twister state, a CUDA one's its
-Philox seed and offset.
+Philox seed and offset.  Each of a :class:`TrialSampler`'s draws runs in a
+span ``draw.<name>`` (``draw.keep_mask``, ``draw.permutation``;
+``utils/tracing.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+
+from rankaae_tpu_torch.utils import tracing
 
 
 class Sampler:
@@ -85,16 +89,21 @@ class TrialSampler:
     def normal(self, name: str, shape: Sequence[int]) -> torch.Tensor:
         """(T, ...) standard-normal float32 draw; ``name`` as in
         :meth:`Sampler.normal`."""
-        return self._stack(lambda s, g: torch.randn(s, generator=g, device=self.device), shape)
+        with tracing.span("draw", name):
+            return self._stack(lambda s, g: torch.randn(s, generator=g, device=self.device),
+                               shape)
 
     def keep_mask(self, shape: Sequence[int], keep: float) -> torch.Tensor:
-        return self._stack(lambda s, g: torch.rand(s, generator=g, device=self.device),
-                           shape) < keep
+        with tracing.span("draw.keep_mask"):
+            return self._stack(lambda s, g: torch.rand(s, generator=g, device=self.device),
+                               shape) < keep
 
     def permutation(self, n: int) -> torch.Tensor:
         """(T, n): one permutation of range(n) per trial."""
-        return self._stack(lambda s, g: torch.randperm(s[0], generator=g, device=self.device),
-                           (self.trials, n))
+        with tracing.span("draw.permutation"):
+            return self._stack(
+                lambda s, g: torch.randperm(s[0], generator=g, device=self.device),
+                (self.trials, n))
 
 
 class FixedDraws(TrialSampler):

@@ -34,6 +34,7 @@ from rankaae_tpu.models import primitives as jprim
 from rankaae_tpu_torch.models.blocks import DecodingBlock, EncodingBlock
 from rankaae_tpu_torch.models.primitives import Conv1d, ConvTranspose1d, reset_parameters
 from rankaae_tpu_torch.ops import fused_block_cuda as fb
+from rankaae_tpu_torch.utils import tracing
 from rankaae_tpu_torch.utils.weights import to_jax
 from tests import torch_parity  # noqa: F401  (one torch thread a process)
 
@@ -182,7 +183,7 @@ def test_eval_block_on_cpu_is_fused_block_plain(c):
                                 dropout_rate=0.0), 11 + c).eval()
     assert block.fused
     x = torch.tensor(np.random.default_rng(6).normal(size=(33, c, 256)).astype(np.float32))
-    before = fb.launches
+    before = tracing.counter("k3.launches")
     with torch.no_grad():
         y = block(x)
         y_plain = fb.fused_block_plain(
@@ -193,7 +194,7 @@ def test_eval_block_on_cpu_is_fused_block_plain(c):
             block.fc2.weight, block.fc2.bias, block.relu_excit_2.weight)
         block.fused = False
         y_ops = block(x)
-    assert fb.launches == before
+    assert tracing.counter("k3.launches") == before
     assert torch.equal(y, y_plain)
     np.testing.assert_allclose(y.numpy(), y_ops.numpy(), atol=ATOL)
 

@@ -26,6 +26,7 @@ from rankaae_tpu.ops.kendall import kendall_constraint as jax_kendall
 
 from rankaae_tpu_torch.ops import kendall as tk
 from rankaae_tpu_torch.ops import kendall_cuda as kc
+from rankaae_tpu_torch.utils import tracing
 from tests import torch_parity  # noqa: F401  (one torch thread a process)
 
 RTOL, ATOL = 1e-4, 1e-6
@@ -199,14 +200,15 @@ def test_trial_batched_equals_per_trial_loop(activate):
 
 def test_cpu_dispatch_uses_plain_version_and_counts_no_launch():
     d, s = _inputs(11, 64)
-    fwd0, bwd0 = kc.fwd_launches, kc.bwd_launches
+    fwd0, bwd0 = tracing.counter("kendall.fwd_launches"), tracing.counter("kendall.bwd_launches")
     loss_d, grad_d = _torch_loss_grad(
         lambda d_, s_, a: kc.kendall_constraint(d_, s_, activate=a), d, s, True)
     loss_p, grad_p = _torch_loss_grad(
         lambda d_, s_, a: tk.kendall_constraint(d_, s_, activate=a), d, s, True)
     np.testing.assert_array_equal(loss_d, loss_p)
     np.testing.assert_array_equal(grad_d, grad_p)
-    assert (kc.fwd_launches, kc.bwd_launches) == (fwd0, bwd0)
+    assert (tracing.counter("kendall.fwd_launches"),
+            tracing.counter("kendall.bwd_launches")) == (fwd0, bwd0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "rank", "contiguity", "shape", "k"])
