@@ -5,10 +5,11 @@
 
 Phases (any failure exits non-zero and prints no result):
 
-1. build — compile ``rankaae_tpu_torch/csrc/kendall.cu`` and
-   ``csrc/fused_block.cu`` with nvcc, one process per source, in parallel;
-   print each kernel's registers and spills from the ptxas report, and fail
-   if any kernel spills;
+1. build — compile ``rankaae_tpu_torch/csrc/kendall.cu``,
+   ``csrc/fused_block.cu`` and ``csrc/conv1d.cu`` with nvcc, one process
+   per source, in parallel; print each kernel's registers and spills from
+   the ptxas report (for ``conv1d.cu``'s 97 kernels their count and the
+   most registers one uses), and fail if any kernel spills;
 2. kernels — hold the Kendall kernels K1 (pair sums, with and without the
    row sums P and N) and K2 (the gradient from P, N, w and g) against their
    plain PyTorch versions on the card, over the batch sizes the main path
@@ -172,12 +173,28 @@ Phases (any failure exits non-zero and prints no result):
    the CPU; (d) ``--mode aggregate`` against ``artifacts/parity_fc300``'s
    reference seeds and ``tools/parity_gate.py`` against the JAX record
    render; K1 and K2 as 6 epochs of 4 and 3 batches' worth a run.
+15. the grouped conv kernels C1–C3 (``ops/conv1d_cuda.py``) — (a) every
+   per-group shape of ``SHAPES`` as a convolution with no, zero and
+   replicate padding and, where kernel == stride, as a transposed one, over
+   ``CONV_LENGTHS`` x ``CONV_ROWS``, then ``CONV_LARGE`` at the main path's
+   B 1024, T 32 (several tiles a block): C1, C2 and C3 against their plain
+   versions, C3 bit-identical over two calls, C1 with its bias equal to C1
+   without it plus the bias, bit for bit; (b) their times at
+   ``CONV_TIMED`` (B 1024, T 32) beside the byte bound, the plain versions'
+   and cuDNN's (``library_ms``, a yardstick the port never calls); (c) in a
+   process of its own, one traced training epoch of the normal and of the
+   compact form at T 32: the ``conv.*`` counters equal to the calls the
+   epoch's protocol makes and to the conv kernels the device trace shows,
+   and no cuDNN convolution kernel; (d) the first epoch from a seeded state,
+   run twice: every weight, statistic, moment and log bit-identical.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
 1e-7), counts, weights and row sums exact (integers), styles gradient atol
-1e-6 (sums taken in another order); phase 4 atol 1e-4 on the six losses
-(as the CPU parity test against the JAX package), and per leaf of the
+1e-6 (sums taken in another order); phase 15a max |kernel - plain| over
+max |plain| at ``CONV_RTOL`` (C1 and C2 sum at most 8 x 17 products an
+output, C3 up to N x L); phase 4 atol 1e-4 on the six losses (as the CPU
+parity test against the JAX package), and per leaf of the
 weights after the batch a max difference of 1e-3 and a relative norm of
 1e-3 (see ``LEAF_ATOL``); phase 5
 max |kernel - plain| <= 1e-5 * max |plain| (the same float32 operations,
@@ -2307,6 +2324,392 @@ def parity_harness_on_card(torch, np, kc, tmp, card):
     return launches
 
 
+# phase 15: the grouped conv kernels C1-C3 (``ops/conv1d_cuda.py``)
+#: lengths each table shape is checked at: a convolution's input, a
+#: transposed convolution's input (its output is stride times as long)
+CONV_LENGTHS = (1, 3, 8, 16, 32, 64, 128, 256)
+CONV_T_LENGTHS = (1, 2, 4, 8, 16, 64)
+CONV_ROWS = (1, 3, 70)
+CONV_GROUPS = 5
+# C1 and C2 sum at most 8 * 17 products an output, C3 up to N * L: their
+# largest difference from the plain version, over the reference's largest
+# magnitude (float32 sums in another order)
+CONV_RTOL = {"C1": 1e-5, "C2": 1e-5, "C3": 1e-4}
+#: phase 15b: the main path's largest convolutions at T 32, B 1024, as
+#: (label, (C_in, C_out, taps, stride) in conv terms, mode, lx):
+#: the stride-1 blocks' 11-tap convolutions at 256, the normal encoder's
+#: first two stride-2 ones, and the last DecodingBlock's transposed 4 -> 4,
+#: 64 -> 256
+CONV_TIMED = (
+    ("4->4 k11 s1 L256 replicate", (4, 4, 11, 1), "replicate", 256),
+    ("4->4 k11 s1 L256 zero", (4, 4, 11, 1), "zeros", 256),
+    ("4->4 k11 s2 L256->128 zero", (4, 4, 11, 2), "zeros", 256),
+    ("4->4 k11 s2 L128->64 zero", (4, 4, 11, 2), "zeros", 128),
+    ("transposed 4->4 k4 L64->256", (4, 4, 4, 4), "transposed", 256),
+)
+CONV_TIMED_B, CONV_TIMED_T = 1024, 32
+#: phase 15a's cases at B 1024, T 32 (several tiles a block): CONV_TIMED and
+#: the CNN discriminator's replicate-padded 5-tap convolutions at L 64
+CONV_LARGE = CONV_TIMED + (
+    ("1->2 k5 s1 L64 replicate", (1, 2, 5, 1), "replicate", 64),
+    ("2->2 k5 s1 L64 replicate", (2, 2, 5, 1), "replicate", 64),
+    ("2->1 k5 s1 L64 replicate", (2, 1, 5, 1), "replicate", 64),
+)
+CONV_FORMS = ("normal", "compact")
+#: the launch counters of C1-C3 and the kernels the device trace names
+CONV_COUNTERS = {"C1": "conv.fwd_launches", "C2": "conv.dgrad_launches",
+                 "C3": "conv.wgrad_launches"}
+CONV_KERNELS = {"C1": "conv_fwd_kernel", "C2": "conv_dgrad_kernel", "C3": "conv_wgrad_kernel"}
+#: cuDNN's convolution kernels, none of which may run in a training epoch
+CUDNN_CONV_NAMES = ("fft", "region_transform", "wgrad_alg", "dgrad_engine",
+                    "implicit_convolve_sgemm", "xmma_fprop")
+
+
+def _conv_case(torch, cc, key, mode, n, groups, lx, dev, seed):
+    """A geometry and random operands of one check: for a convolution x,
+    w, b, dy and a bias of C2's; for a transposed one its x (C2's dy), w,
+    its bias, and its dy (C1's x)."""
+    ci, co, k, s = key
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pad = 0 if mode in ("none", "transposed") else (k - 1) // 2
+    geo = cc.Geometry(ci, co, k, s, pad, mode == "replicate", groups)
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)  # noqa: E731
+    w = rnd(groups * co, ci, k) / (ci * k) ** 0.5
+    if mode == "transposed":
+        return geo, rnd(n, groups * co, lx), w, rnd(groups * ci), rnd(n, groups * ci, lx * s)
+    return geo, rnd(n, groups * ci, lx), w, rnd(groups * co), rnd(n, groups * co,
+                                                                   geo.out_length(lx))
+
+
+def conv_runs(cc, geo, mode, x, w, b, other):
+    """The three kernels and their plain versions on one case: {kernel:
+    (kernel's result, plain result)}, C3's weight and bias gradients joined."""
+    if mode == "transposed":            # x is the transposed conv's input, other its dy
+        lx = x.shape[-1] * geo.stride
+        c1 = (cc.forward(other, w, None, geo), cc.forward_plain(other, w, None, geo))
+        c2 = (cc.input_grad(x, w, lx, geo, b), cc.input_grad_plain(x, w, lx, geo, b))
+        c3k = cc.weight_grad(other, x, geo, cc.BIAS_X)
+        c3p = cc.weight_grad_plain(other, x, geo, cc.BIAS_X)
+    else:                               # other is dy
+        bias_in = b.new_ones(geo.groups * geo.c_in)
+        c1 = (cc.forward(x, w, b, geo), cc.forward_plain(x, w, b, geo))
+        c2 = (cc.input_grad(other, w, x.shape[-1], geo, bias_in),
+              cc.input_grad_plain(other, w, x.shape[-1], geo, bias_in))
+        c3k = cc.weight_grad(x, other, geo, cc.BIAS_DY)
+        c3p = cc.weight_grad_plain(x, other, geo, cc.BIAS_DY)
+    return {"C1": c1, "C2": c2, "C3": (c3k, c3p)}
+
+
+def _check_conv_case(torch, cc, key, mode, n, groups, lx, dev, seed, worst):
+    """One case of phase 15a: C1, C2 and C3 against their plain versions
+    (CONV_RTOL), C3 bit-identical over two calls, C1 with its bias equal to
+    C1 without it plus the bias, bit for bit; ``worst`` takes each kernel's
+    largest relative difference."""
+    geo, x, w, b, other = _conv_case(torch, cc, key, mode, n, groups, lx, dev, seed=seed)
+    runs = conv_runs(cc, geo, mode, x, w, b, other)
+    for name, (got, want) in runs.items():
+        if name == "C3":
+            got, want = torch.cat([got[0].flatten(), got[1]]), \
+                torch.cat([want[0].flatten(), want[1]])
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        worst[name] = max(worst[name], err)
+        assert err <= CONV_RTOL[name], (name, key, mode, lx, n, groups, err)
+    again = conv_runs(cc, geo, mode, x, w, b, other)["C3"][0]
+    assert all(torch.equal(a, c) for a, c in zip(runs["C3"][0], again)), (key, mode, lx, n)
+    if mode != "transposed":    # C1 rounds the bias in once, after the taps' sum
+        assert torch.equal(cc.forward(x, w, b, geo), cc.forward(x, w, None, geo) + b[:, None]), \
+            (key, mode, lx, n)
+
+
+def check_conv(torch, cc):
+    """Phase 15a: every table shape as a convolution (no, zero and replicate
+    padding) and, where kernel == stride, as a transposed one, over
+    CONV_LENGTHS x CONV_ROWS; then CONV_LARGE at the main path's B 1024, T
+    32, where a C1 or C2 block walks several tiles through its two buffers
+    and a C3 block several sub-tiles: C1, C2 and C3 against their plain
+    versions (CONV_RTOL), C3 bit-identical over two calls.  Returns the
+    largest relative difference of each kernel in each pass."""
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False     # the plain versions in float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = dict.fromkeys(CONV_RTOL, 0.0)
+    cases = 0
+    for key in cc.SHAPES:
+        _, _, k, s = key
+        modes = ["none"] if k == 1 else ["none", "zeros", "replicate"]
+        for mode in modes + (["transposed"] if k == s else []):
+            lengths = CONV_T_LENGTHS if mode == "transposed" else CONV_LENGTHS
+            for lx in lengths:
+                if mode != "transposed" and lx + (k - 1) // 2 * 2 * (mode != "none") < k:
+                    continue
+                for n in CONV_ROWS:
+                    _check_conv_case(torch, cc, key, mode, n, CONV_GROUPS, lx, dev, cases, worst)
+                    cases += 1
+    large = dict.fromkeys(CONV_RTOL, 0.0)
+    for i, (_, key, mode, lx) in enumerate(CONV_LARGE):
+        _check_conv_case(torch, cc, key, mode, CONV_TIMED_B, CONV_TIMED_T,
+                         lx // key[3] if mode == "transposed" else lx, dev, 10_000 + i, large)
+    torch.cuda.synchronize()
+    print(f"15a conv kernels: {cases} cases ({len(cc.SHAPES)} shapes, N <= {max(CONV_ROWS)}, "
+          f"{CONV_GROUPS} groups) and {len(CONV_LARGE)} at B {CONV_TIMED_B}, T {CONV_TIMED_T} "
+          f"({', '.join(label for label, *_ in CONV_LARGE)}) agree with the plain versions, "
+          f"largest relative differences {json.dumps(worst)} and at B {CONV_TIMED_B} "
+          f"{json.dumps(large)} (limits {json.dumps(CONV_RTOL)}); C3 bit-identical over two "
+          f"calls in every case")
+    return {"small": worst, "large": large}
+
+
+def conv_bytes(geo, mode, n, lx):
+    """Bytes C1, C2 and C3 must move at (geo, n, lx): each input read once
+    and each output written once (C3's few hundred output floats a group
+    left out)."""
+    if mode == "transposed":            # C2 maps (n, g*co, lx/s) to (n, g*ci, lx)
+        small = n * geo.groups * geo.c_out * (lx // geo.stride) * 4
+        big = n * geo.groups * geo.c_in * lx * 4
+        return {"C1": small + big, "C2": small + big, "C3": small + big}
+    x = n * geo.groups * geo.c_in * lx * 4
+    y = n * geo.groups * geo.c_out * geo.out_length(lx) * 4
+    return {"C1": x + y, "C2": x + y, "C3": x + y}
+
+
+def time_conv(torch, cc, card):
+    """Phase 15b: C1-C3 at CONV_TIMED (B 1024, T 32): CUDA events around
+    back-to-back calls, against their byte bound (bytes over 3.35 TB/s),
+    their plain versions and cuDNN (``library_ms``: ``F.conv1d`` or
+    ``conv_transpose1d`` and ``torch.ops.aten.convolution_backward``, a
+    yardstick the port never calls).  Returns {label: {kernel: times}}."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    for label, key, mode, lx in CONV_TIMED:
+        n, groups = CONV_TIMED_B, CONV_TIMED_T
+        geo, x, w, b, other = _conv_case(torch, cc, key, mode, n, groups,
+                                         lx // key[3] if mode == "transposed" else lx, dev, 0)
+        nbytes = conv_bytes(geo, mode, n, lx)
+        if mode == "transposed":
+            x_t, dy_t, big = x, other, lx
+            kern = {"C1": lambda: cc.forward(dy_t, w, None, geo),
+                    "C2": lambda: cc.input_grad(x_t, w, big, geo, b),
+                    "C3": lambda: cc.weight_grad(dy_t, x_t, geo, cc.BIAS_X)}
+            plain = {"C1": lambda: cc.forward_plain(dy_t, w, None, geo),
+                     "C2": lambda: cc.input_grad_plain(x_t, w, big, geo, b),
+                     "C3": lambda: cc.weight_grad_plain(dy_t, x_t, geo, cc.BIAS_X)}
+            lib_in, lib_w, lib_out = dy_t, w, x_t      # C1 is the conv of dy_t
+            lib = {"C2": lambda: F.conv_transpose1d(x_t, w, b, geo.stride, 0, 0, groups)}
+            lib_pad = 0
+        else:
+            dy = other
+            kern = {"C1": lambda: cc.forward(x, w, b, geo),
+                    "C2": lambda: cc.input_grad(dy, w, lx, geo),
+                    "C3": lambda: cc.weight_grad(x, dy, geo, cc.BIAS_DY)}
+            plain = {"C1": lambda: cc.forward_plain(x, w, b, geo),
+                     "C2": lambda: cc.input_grad_plain(dy, w, lx, geo),
+                     "C3": lambda: cc.weight_grad_plain(x, dy, geo, cc.BIAS_DY)}
+            # cuDNN on the padded input for replicate padding (the pad not timed)
+            lib_in = F.pad(x, (geo.pad, geo.pad), mode="replicate") if geo.replicate else x
+            lib_w, lib_out, lib_pad = w, dy, 0 if geo.replicate else geo.pad
+            lib = {}
+        lib.setdefault("C1", lambda: F.conv1d(lib_in, lib_w, None if mode == "transposed"
+                                              else b, geo.stride, lib_pad, 1, groups))
+        lib["C2"] = lib.get("C2") or (lambda: torch.ops.aten.convolution_backward(
+            lib_out, lib_in, lib_w, None, [geo.stride], [lib_pad], [1], False, [0], groups,
+            [True, False, False]))
+        lib["C3"] = lambda: torch.ops.aten.convolution_backward(
+            lib_out, lib_in, lib_w, [lib_w.shape[0]], [geo.stride], [lib_pad], [1], False,
+            [0], groups, [False, True, True])
+        rows[label] = {}
+        for name in ("C1", "C2", "C3"):
+            ms = time_ms(torch, kern[name], reps=50, warmup=5)
+            bound = nbytes[name] / PEAK_BYTES_PER_S * 1e3
+            rows[label][name] = {
+                "ms": ms, "bound_ms": bound, "bound_by": "bytes", "roofline": bound / ms,
+                "plain_ms": time_ms(torch, plain[name], reps=10, warmup=2),
+                "library_ms": time_ms(torch, lib[name], reps=20, warmup=3)}
+        torch.cuda.empty_cache()
+        print(f"15b {label}, B {n}, T {groups}: " + json.dumps(rows[label]) + f" [{card}]")
+    return rows
+
+
+def conv_epoch_trace(torch, cfg_path, splits, trials=CONV_TIMED_T):
+    """One traced training epoch of each form of CONV_FORMS at T ``trials``
+    (after a warm-up epoch): {form: the ``conv.*`` counters' launches, the
+    calls the epoch's protocol makes (counted by hooks on the conv modules
+    and the smoothing filter, and on their outputs for each backward), the
+    conv kernels the device trace shows and their device ms, the cuDNN
+    convolution kernels it shows, and its device ms in all}."""
+    from rankaae_tpu_torch.models import primitives as P
+    from rankaae_tpu_torch.ops import losses
+    from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+    from rankaae_tpu_torch.utils import tracing
+    from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
+
+    out = {}
+    for form in CONV_FORMS:
+        params = Parameters.from_yaml(cfg_path)
+        params.update({"ae_form": form})
+        cfg = TrainConfig.from_parameters(params)
+        P.set_matmul_precision(cfg.matmul_precision)
+        data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
+        core = RankAAETrainer(cfg, n_train=len(splits[0]), n_val=len(splits[2]),
+                              trials=trials, device="cuda")
+        state = core.init_state(0)
+        state, _ = core.epoch_step(state, 0, data)
+        torch.cuda.synchronize()
+        want = dict.fromkeys(CONV_COUNTERS, 0)
+
+        def counted(calls, weighted, grads_x):
+            """Count a call's launches, and those of each backward through it."""
+            def on_backward(_):
+                want["C2" if calls == "C1" else "C1"] += grads_x
+                want["C3"] += weighted
+            return on_backward
+
+        def hook(m, inp, y):
+            tconv = isinstance(m, P.TrialConvTranspose1d)
+            want["C2" if tconv else "C1"] += 1
+            if y.requires_grad:
+                y.register_hook(counted("C2" if tconv else "C1",
+                                        int(m.weight.requires_grad), int(inp[0].requires_grad)))
+
+        handles = [m.register_forward_hook(hook) for model in core.models.values()
+                   for m in model.modules()
+                   if isinstance(m, (P.TrialConv1d, P.TrialConvTranspose1d))]
+        smooth = losses.gaussian_smooth_1d
+
+        def smoothing(x, *a):
+            want["C1"] += 1
+            y = smooth(x, *a)
+            if y.requires_grad:
+                y.register_hook(lambda _: want.__setitem__("C2", want["C2"] + 1))
+            return y
+
+        losses.gaussian_smooth_1d = smoothing
+        before = {k: tracing.counter(v) for k, v in CONV_COUNTERS.items()}
+        try:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                state, _ = core.epoch_step(state, 1, data)
+                torch.cuda.synchronize()
+        finally:
+            losses.gaussian_smooth_1d = smooth
+            for h in handles:
+                h.remove()
+        traced = dict.fromkeys(CONV_COUNTERS, 0)
+        traced_ms = dict.fromkeys(CONV_COUNTERS, 0.0)
+        cudnn = {}
+        all_ms = 0.0
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = (evt.time_range.end - evt.time_range.start) / 1e3
+            all_ms += ms
+            for k, kname in CONV_KERNELS.items():
+                traced[k] += kname in evt.name
+                traced_ms[k] += ms * (kname in evt.name or (k == "C3" and
+                                                             "conv_wgrad_sum" in evt.name))
+            if any(c in evt.name for c in CUDNN_CONV_NAMES):
+                cudnn[evt.name[:80]] = cudnn.get(evt.name[:80], 0) + 1
+        got = {k: int(tracing.counter(v) - before[k]) for k, v in CONV_COUNTERS.items()}
+        out[form] = {"launches": got, "protocol": want, "traced": traced,
+                     "traced_ms": traced_ms, "cudnn": cudnn, "device_ms": all_ms}
+        del core, state, data
+        torch.cuda.empty_cache()
+    return out
+
+
+def conv_epoch_main(argv) -> int:
+    """Phase 15c's traced epochs in a process of their own (``chip_smoke.py
+    --conv-epoch DATA OUT``): :func:`conv_epoch_trace` on the splits in
+    DATA, its result into OUT as JSON."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from rankaae_tpu_torch.ops import conv1d_cuda as cc
+
+    data_npz, out = argv
+    cc.build()
+    with np.load(data_npz) as z:
+        splits = tuple(z[k] for k in ("a", "b", "c", "d"))
+    res = conv_epoch_trace(torch, os.path.join(HERE, "example", "fix_config.yaml"), splits)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def conv_epoch_launches(np, splits, card):
+    """Phase 15c: :func:`conv_epoch_trace` in a fresh process (the first
+    profiler session there): the ``conv.*`` counters equal to the calls the
+    epoch's protocol makes and to the conv kernels the device trace shows,
+    and no cuDNN convolution kernel in the trace."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_conv_epoch_") as tmp:
+        data_npz, out = os.path.join(tmp, "data.npz"), os.path.join(tmp, "conv_epoch.json")
+        np.savez(data_npz, a=splits[0], b=splits[1], c=splits[2], d=splits[3])
+        res = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                              "--conv-epoch", data_npz, out], capture_output=True, text=True,
+                             timeout=900, cwd=HERE)
+        assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+        with open(out) as f:
+            runs = json.load(f)
+    for form, r in runs.items():
+        got = r["launches"]
+        assert got == r["protocol"] and min(got.values()) > 0, (form, got, r["protocol"])
+        assert r["traced"] == got, (form, got, r["traced"])
+        assert not r["cudnn"], (form, r["cudnn"])
+        print(f"15c {form}, T {CONV_TIMED_T}, a process of its own: one traced epoch's conv "
+              f"launches {json.dumps(got)} = the protocol's conv calls = the conv kernels the "
+              f"device trace shows; no cuDNN convolution kernel; their device ms "
+              f"{json.dumps(r['traced_ms'])} of {r['device_ms']:.1f} ms of device operations "
+              f"[{card}]")
+    return runs
+
+
+def conv_epoch_repeatable(torch, cfg_path, splits, card, trials=CONV_TIMED_T):
+    """Phase 15d: the first training epoch of each form of CONV_FORMS at T
+    ``trials``, from seed 0, twice: every parameter, statistic, optimizer
+    moment and log bit-identical (C3 sums in a fixed order; cuDNN's weight
+    gradients did not, ROADMAP's known hazards)."""
+    from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+    from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, torch.Tensor):
+            yield prefix, tree
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{prefix}/{i}")
+        elif hasattr(tree, "__dict__"):
+            yield from leaves(vars(tree), prefix)
+
+    for form in CONV_FORMS:
+        params = Parameters.from_yaml(cfg_path)
+        params.update({"ae_form": form})
+        cfg = TrainConfig.from_parameters(params)
+        data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
+        runs = []
+        for _ in range(2):
+            core = RankAAETrainer(cfg, n_train=len(splits[0]), n_val=len(splits[2]),
+                                  trials=trials, device="cuda")
+            state, log = core.epoch_step(core.init_state(0), 0, data)
+            torch.cuda.synchronize()
+            runs.append(dict(leaves({"models": {k: m.state_dict() for k, m in
+                                                 core.models.items()},
+                                      "state": state, "log": log})))
+            del core, state
+        diff = [k for k, v in runs[0].items()
+                if v.is_floating_point() and not torch.equal(v, runs[1][k])]
+        assert runs[0].keys() == runs[1].keys() and not diff, (form, diff[:10])
+        print(f"15d {form}, T {trials}: the first epoch twice from seed 0, "
+              f"{len(runs[0])} leaves (weights, statistics, moments, logs) bit-identical "
+              f"[{card}]")
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2320,10 +2723,12 @@ def main() -> int:
     from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes_csv
     from rankaae_tpu_torch.models.primitives import set_matmul_precision
     from rankaae_tpu_torch.ops import _nvcc
+    from rankaae_tpu_torch.ops import conv1d_cuda as cc
     from rankaae_tpu_torch.ops import fused_block_cuda as fb
     from rankaae_tpu_torch.ops import kendall as tk
     from rankaae_tpu_torch.ops import kendall_cuda as kc
     from rankaae_tpu_torch.train.facade import Trainer
+    from rankaae_tpu_torch.utils import tracing
     from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
 
     card = card_line()
@@ -2332,17 +2737,24 @@ def main() -> int:
 
     # ---- 1. build ----------------------------------------------------- #
     t_start = t0 = time.perf_counter()
-    _nvcc.compile_all([kc.SOURCE, fb.SOURCE])
+    _nvcc.compile_all([kc.SOURCE, fb.SOURCE, cc.SOURCE])
     kc.build()
     fb.build()
-    print(f"build: {kc.SOURCE.name}, {fb.SOURCE.name} in parallel in "
+    cc.build()
+    print(f"build: {kc.SOURCE.name}, {fb.SOURCE.name}, {cc.SOURCE.name} in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
-    for source in (kc.SOURCE, fb.SOURCE):     # kept beside the library, built or cached
+    for source in (kc.SOURCE, fb.SOURCE, cc.SOURCE):   # kept beside the library
+        regs = []
         for line in _nvcc.build_log(source).splitlines():
-            if "entry function" in line or "Used" in line or "spill" in line:
+            if source != cc.SOURCE and ("entry function" in line or "Used" in line
+                                        or "spill" in line):
                 print(f"  ptxas {source.name}: {line.strip()}")
+            regs += [int(r) for r in re.findall(r"Used (\d+) registers", line)]
             if "spill" in line:                   # no kernel may spill registers
                 assert set(re.findall(r"(\d+) bytes spill", line)) == {"0"}, (source.name, line)
+        if source == cc.SOURCE:
+            print(f"  ptxas {source.name}: {len(regs)} kernels, at most {max(regs)} registers, "
+                  f"no spills")
 
     # ---- 2. kernels against their plain versions ----------------------- #
     t0 = time.perf_counter()
@@ -2606,6 +3018,20 @@ def main() -> int:
         print(f"14: {time.perf_counter() - t0:.1f} s; phases 1-14: "
               f"{time.perf_counter() - t_start:.1f} s")
 
+    # ---- 15. the grouped conv kernels C1-C3 ------------------------------- #
+    t0 = time.perf_counter()
+    # the main path's C1-C3 calls: every one of phases 1-14 in this process
+    # (phase 15's check cases, timing loops and epochs are not counted)
+    conv_launches_main = {k: int(tracing.counter(v)) for k, v in CONV_COUNTERS.items()}
+    print(f"C1-C3 calls of phases 1-14 in this process: {json.dumps(conv_launches_main)}")
+    conv_err = check_conv(torch, cc)
+    conv_times = time_conv(torch, cc, card)
+    conv_epoch_launches(np, splits, card)
+    conv_epoch_repeatable(torch, cfg_path, splits, card)
+    set_matmul_precision(cfg.matmul_precision)
+    print(f"15: {time.perf_counter() - t0:.1f} s; phases 1-15: "
+          f"{time.perf_counter() - t_start:.1f} s")
+
     for name in ("kendall_pair_sums", "kendall_grad_rows"):
         launches[name] += conv_launches[name] + trial_launches[name] + recal_launches[name] \
             + sum(run[1][name] for run in resume_runs.values()) + normal_launches[name] \
@@ -2641,11 +3067,23 @@ def main() -> int:
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None, "device_ms": k3["device_ms"],
     })
+    conv = conv_times[CONV_TIMED[0][0]]
+    for name, counter in CONV_COUNTERS.items():
+        rows.append({
+            "name": name, "route": "cuda", "source": "rankaae_tpu_torch/csrc/conv1d.cu",
+            "replaces": None, "launches": conv_launches_main[name],
+            "max_abs_err": conv_err["large"][name], "ms": conv[name]["ms"],
+            "plain_ms": conv[name]["plain_ms"], "bound_ms": conv[name]["bound_ms"],
+            "bound_by": "bytes", "library_ms": conv[name]["library_ms"], "device_ms": None})
     print("library_ms: null — no single PyTorch call computes the Kendall pair sums "
           "or their gradient rows, nor the fused EncodingBlock (two convs, BNs, PReLUs, "
           "residual and excitation MLP); K3's row is at the serving shape C 4, B 1024; "
           "launches are the main paths' (phases 3, 6, 7a, 8a, 9a, 9b, 9c, 10a, 10c, 11a, "
-          "11c, 11d, 12a, 12b, 13a, 13b and 14a)")
+          "11c, 11d, 12a, 12b, 13a, 13b and 14a); C1-C3 (no TPU kernel: the JAX package "
+          "leaves its convolutions to XLA) at " + CONV_TIMED[0][0] + ", B 1024, T 32, "
+          "max_abs_err their largest difference relative to the plain version's magnitude "
+          "over 15a's cases at B 1024, T 32, library_ms cuDNN's, launches every call of "
+          "phases 1-14 in this process")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2659,4 +3097,6 @@ if __name__ == "__main__":
         sys.exit(rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--dp-rank"]:              # one rank of phase 12c
         sys.exit(dp_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--conv-epoch"]:           # phase 15c's traced epochs
+        sys.exit(conv_epoch_main(sys.argv[2:]))
     sys.exit(main())

@@ -22,7 +22,8 @@ they take (T, B, C) inputs: ``TrialLinear`` (weight (T, out, in), bias
 every statistic is per trial).  Over channels they take (B, T*C, L) inputs,
 trial t's channels at [t*C, (t+1)*C): ``TrialConv1d`` and
 ``TrialConvTranspose1d`` (weight (T, ...) of the single layout, one grouped
-convolution with T times the groups), ``TrialChannelPReLU``,
+convolution with T times the groups: in float32 on the card the kernels C1–C3
+of ``ops/conv1d_cuda.py``, on the CPU ``F.conv1d``), ``TrialChannelPReLU``,
 ``TrialChannelBatchNorm`` (one ``F.batch_norm`` over the T*C channels),
 ``TrialLengthLinear`` (a ``TrialLinear`` over the length axis, through a
 (T, B*C, L) copy) and ``TrialChannelDropout``.  ``Dropout`` asks its sampler
@@ -74,9 +75,9 @@ from torch import nn
 def set_matmul_precision(name: str) -> None:
     """'highest' (true f32) or 'default' (TF32 tensor-core passes).
 
-    Sets both the cuBLAS and the cuDNN flag: the smoothing convolution goes
-    through cuDNN, whose TF32 is on by default.  Process-level, like the JAX
-    package's knob."""
+    Sets both the cuBLAS and the cuDNN flag: the single-trial convolutions
+    (serving, the report) go through cuDNN, whose TF32 is on by default.
+    Process-level, like the JAX package's knob."""
     allow = {"highest": False, "default": True}[name]
     torch.backends.cuda.matmul.allow_tf32 = allow
     torch.backends.cudnn.allow_tf32 = allow
@@ -266,8 +267,10 @@ class TrialBatchNorm(nn.Module):
 class TrialConv1d(nn.Module):
     """T independent ``nn.Conv1d``s over (B, T*C_in, L): weight (T, C_out,
     C_in/groups, k), bias (T, C_out), run as one convolution with
-    T*groups groups; replicate padding goes through ``F.pad`` first, as in
-    ``nn.Conv1d``.  In ``act_dtype``, as :class:`Conv1d`."""
+    T*groups groups (``ops/conv1d_cuda.conv1d``: the kernels C1–C3 in float32
+    on the card, which pad inside; on the CPU replicate padding goes through
+    ``F.pad`` first, as in ``nn.Conv1d``).  In ``act_dtype``, as
+    :class:`Conv1d`."""
 
     act_dtype = torch.float32
 
@@ -283,14 +286,13 @@ class TrialConv1d(nn.Module):
 
     def forward(self, x):
         dt, pad = self.act_dtype, self.padding
-        if dt != torch.float32:
-            x = x.to(dt)
-        if self.replicate and pad:
-            x, pad = F.pad(x, (pad, pad), mode="replicate"), 0
         groups = self.weight.shape[0] * self.groups
         if dt == torch.float32:
-            return F.conv1d(x, self.weight.flatten(0, 1), self.bias.flatten(), self.stride,
-                            pad, 1, groups)
+            return conv1d_cuda.conv1d(x, self.weight.flatten(0, 1), self.bias.flatten(),
+                                      self.stride, pad, self.replicate, groups)
+        x = x.to(dt)
+        if self.replicate and pad:
+            x, pad = F.pad(x, (pad, pad), mode="replicate"), 0
         y = F.conv1d(x, self.weight.flatten(0, 1).to(dt), None, self.stride, pad, 1, groups)
         return y + self.bias.flatten().to(dt)[:, None]
 
@@ -316,6 +318,9 @@ class TrialConvTranspose1d(nn.Module):
 
     def forward(self, x):
         dt, groups = self.act_dtype, self.weight.shape[0] * self.groups
+        if dt == torch.float32:
+            return conv1d_cuda.conv_transpose1d(x, self.weight.flatten(0, 1),
+                                                self.bias.flatten(), self.stride, groups)
         return _in_act(F.conv_transpose1d(_rounded(x, dt),
                                           _rounded(self.weight.flatten(0, 1), dt),
                                           self.bias.flatten(), self.stride, 0, 0, groups), dt)
@@ -494,9 +499,14 @@ def gaussian_kernel_1d(kernel_size: int, sigma: float, device=None) -> torch.Ten
 def gaussian_smooth_1d(x: torch.Tensor, kernel_size: int = 17, sigma: float = 3.0) -> torch.Tensor:
     """Depthwise Gaussian smoothing of (B, L) signals with replicate padding
     (reference ``GaussianSmoothing`` + ``ReplicationPad1d``,
-    ``sc/utils/functions.py:203-209``)."""
+    ``sc/utils/functions.py:203-209``), in float32: C1 and C2 on the card."""
     pad = (kernel_size - 1) // 2
     x = x.float()
     kernel = gaussian_kernel_1d(kernel_size, sigma, device=x.device)
-    xp = F.pad(x[:, None, :], (pad, pad), mode="replicate")
-    return F.conv1d(xp, kernel.view(1, 1, kernel_size))[:, 0, :]
+    return conv1d_cuda.conv1d(x[:, None, :], kernel.view(1, 1, kernel_size), None, 1, pad,
+                              True)[:, 0, :]
+
+
+# last: importing the ops package imports ops/losses.py, which takes
+# gaussian_smooth_1d from this module
+from rankaae_tpu_torch.ops import conv1d_cuda  # noqa: E402
