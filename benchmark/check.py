@@ -1,5 +1,7 @@
 """What decides ``correct``: the program's first epoch, recorded as it runs,
-against :mod:`benchmark.reference` run afterwards.
+against the plain reference run afterwards: the protocol of
+:mod:`benchmark.reference` with the model module that the cell's
+configuration names (``benchmark/models/conv.py`` for the conv forms).
 
 The set-up's warm-up epoch is the check's epoch.  It runs through the
 window's own call (``RankAAETrainer.epoch_step``) on the window's data and
@@ -289,11 +291,13 @@ def _draws_sound(records, n_train) -> bool:
     return True
 
 
-def run_reference(cfg, rec, data, epoch: int, device, where=None) -> Dict[str, float]:
+def run_reference(cfg, rec, data, epoch: int, device, where=None, *, model
+                  ) -> Dict[str, float]:
     """The numbers of :data:`NUMBERS` for the recorded epoch ``rec``
     (:meth:`Recorder.finish`) of ``cfg`` on ``data`` (the benchmark's host
     arrays: train spectra, train descriptors, val spectra, val
-    descriptors).  ``where``, a dict, gets each number's worst place."""
+    descriptors), the reference's model from the model module ``model``.
+    ``where``, a dict, gets each number's worst place."""
     ref.float32_only()
     train_spec, train_aux, val_spec, val_aux = (torch.as_tensor(a, device=device) for a in data)
     b, n_batch = cfg["batch_size"], rec["n_batch"]
@@ -328,7 +332,7 @@ def run_reference(cfg, rec, data, epoch: int, device, where=None) -> Dict[str, f
         # the first three steps of batch 1 from the initial weights
         batch = rec["batches"][1]
         spec, aux = rows(1)
-        trial = ref.Trial(cfg, w0, device)
+        trial = ref.Trial(cfg, w0, device, model=model)
         draws = _draws(batch["draws"][:batch["pos"][3]], j, device)
         trial.begin(spec, draws)
         moved = set()
@@ -349,7 +353,8 @@ def run_reference(cfg, rec, data, epoch: int, device, where=None) -> Dict[str, f
             for s, (step, opt, _) in enumerate(ref.STEPS):
                 post = batch["steps"][step]
                 count, mu, nu = post["pre_m"]
-                trial = ref.Trial(cfg, pre, device, {opt: (count, _pick(mu, j), _pick(nu, j))})
+                trial = ref.Trial(cfg, pre, device, {opt: (count, _pick(mu, j), _pick(nu, j))},
+                                  model=model)
                 draws = _draws(batch["draws"][:batch["pos"][0]]
                                + batch["draws"][batch["pos"][s]:batch["pos"][s + 1]], j, device)
                 trial.begin(spec, draws)
@@ -370,7 +375,7 @@ def run_reference(cfg, rec, data, epoch: int, device, where=None) -> Dict[str, f
 
         # the validation from the state that entered the program's
         last = rec["batches"][n_batch]["steps"]["smoothness"]["post_w"]
-        trial = ref.Trial(cfg, _trial(last, j, device), device)
+        trial = ref.Trial(cfg, _trial(last, j, device), device, model=model)
         avg_mi = float(np.mean([float(mi[j]) for mi in rec["batch_mi"]]))
         val = trial.validate(val_spec, val_aux, epoch, _draws(rec["val"], j, device), avg_mi)
         log = rec["log"]

@@ -1,20 +1,17 @@
-"""Operation and byte counts: the model's multiply-adds from its layer
-shapes (for ``train_mfu``), and the least time of the port's hand-written
-kernels (for their roofline shares).
+"""Operation and byte counts: a training epoch's operations from the
+model's multiply-adds (for ``train_mfu``), and the least time of the port's
+hand-written kernels (for their roofline shares).
 
 :func:`bound` and :func:`k3_bound` are frozen copies of
 ``chip_smoke.py``'s functions of the same names (K1 with PR 3's count);
 :func:`bound` also takes K1's call without the row sums (``rows=False``,
-the validation's), which writes no P, N.  The shapes of the model come
-from :mod:`benchmark.reference`'s tables, not from the program.
+the validation's), which writes no P, N.  The model's multiply-adds come
+from its model module's ``macs`` (see :mod:`benchmark.reference`), which
+counts them from its layer shapes, not from the program.
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
-
-from benchmark.reference import ENCODERS, decoder_blocks
 
 # NVIDIA H100 SXM, published dense peaks at 700 W: HBM bytes/s and float32
 # FLOP/s outside the tensor cores (TF32 off)
@@ -78,76 +75,23 @@ def untied_pairs(d):
 
 
 # --------------------------------------------------------------------------- #
-# the model's multiply-adds per sample
+# the training epoch's operations
 # --------------------------------------------------------------------------- #
-
-def conv_macs(c_in, c_out, k, l_out, groups=1):
-    return c_out * (c_in // groups) * k * l_out
-
-
-def conv_t_macs(c_in, c_out, k, l_in, groups=1):
-    return c_in * (c_out // groups) * k * l_in
-
-
-def encoding_block_macs(c_in, c_out, in_len, out_len, k, stride, e):
-    """Multiply-adds of one EncodingBlock for one sample: its two
-    convolutions, the shortcut, the excitation's two length-Linears and its
-    1x1 convolution."""
-    s1 = in_len // (out_len * stride)
-    l1 = in_len // s1
-    macs = conv_macs(c_in, c_out, k, l1) + conv_macs(c_out, c_out, k, l1 // stride)
-    if stride > 1 or c_in != c_out:
-        macs += conv_macs(c_in, c_out, in_len // out_len, out_len, math.gcd(c_in, c_out))
-    macs += c_in * (in_len * e + e * out_len)
-    if c_in != c_out:
-        macs += conv_macs(c_in, c_out, 1, out_len, math.gcd(c_in, c_out))
-    return macs
-
-
-def decoding_block_macs(c_in, c_out, in_len, out_len, e):
-    s2 = out_len // (in_len * 2)
-    macs = conv_t_macs(c_in, c_out, 2, in_len) + conv_t_macs(c_out, c_out, s2, 2 * in_len)
-    macs += conv_t_macs(c_in, c_out, out_len // in_len, in_len, math.gcd(c_in, c_out))
-    macs += c_in * (in_len * e + e * out_len)
-    if c_in != c_out:
-        macs += conv_macs(c_in, c_out, 1, out_len, math.gcd(c_in, c_out))
-    return macs
-
-
-def encoder_macs(cfg):
-    macs = 0
-    for i, (c_in, c_out, in_len, out_len, k, e) in enumerate(ENCODERS[cfg["ae_form"]]):
-        in_len = cfg["dim_in"] if i == 0 else in_len
-        macs += encoding_block_macs(c_in, c_out, in_len, out_len, k, 2, e)
-    return macs + 32 * cfg["nstyle"]
-
-
-def decoder_macs(cfg):
-    dblocks, eblocks = decoder_blocks(cfg)
-    macs = sum(decoding_block_macs(c_in, c_out, in_len, out_len, e)
-               for c_in, c_out, in_len, e, out_len in dblocks)
-    macs += sum(encoding_block_macs(c_in, c_out, 256, 256, 11, 1, 2) for c_in, c_out in eblocks)
-    return macs + conv_macs(eblocks[-1][1], 1, 1, 256)
-
-
-def discriminator_macs(cfg):
-    layers = cfg["FC_discriminator_layers"]
-    return cfg["nstyle"] * 64 + (layers - 2) * 64 * 64 + 64
-
 
 SMOOTH_MACS = 17 * 256
 
 
-def epoch_flops(cfg, n_train, n_val):
+def epoch_flops(model, cfg, n_train, n_val):
     """Floating-point operations (2 per multiply-add) of one trial's epoch of
-    the faithful GRL protocol: each batch's forwards (6 encodes, 4 decodes,
-    one discriminator pass over the prior's draws and the styles, the
+    the faithful GRL protocol, with the per-spectrum multiply-adds of the
+    model module ``model``: each batch's forwards (6 encodes, 4 decodes,
+    the discriminator over the prior's draws and the styles, the
     smoothing) and, for each differentiated pass (4 of the encoder, 3 of the
     decoder, 1 of the discriminator and of the smoothing), a backward of
     twice the forward's; then the validation
     (2 encodes, 2 decodes, the discriminator on the prior's draws and the
     latent, the smoothing).  Nothing is recomputed in this protocol."""
-    enc, dec, dis = encoder_macs(cfg), decoder_macs(cfg), discriminator_macs(cfg)
+    enc, dec, dis = model.macs(cfg)
     real = cfg["batch_size"]
     macs = 0
     for start in range(0, n_train, cfg["batch_size"]):

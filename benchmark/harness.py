@@ -3,8 +3,11 @@ check, and the result line.
 
 Everything that belongs to a cell is found by name: the cell in
 ``BENCHMARK.json``, its configuration in ``benchmark/configs/<config>.json``,
-its traffic in ``benchmark/workloads/<traffic>.json``, and each metric it
-reports in ``benchmark/metrics/<metric>.py`` (a module with
+the configuration's model module (the plain reference's encoder, decoder,
+discriminator, weights' layout and multiply-adds) at the path its
+``reference`` key gives, its traffic in
+``benchmark/workloads/<traffic>.json``, and each metric it reports in
+``benchmark/metrics/<metric>.py`` (a module with
 ``read(run) -> float | None``).  The system under test is
 ``rankaae_tpu_torch``'s trainer: T stacked trials, driven one epoch at a
 time through ``RankAAETrainer.epoch_step``, each epoch ending in a device
@@ -30,6 +33,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "rankaae_tpu")
 
 class NoDevice(RuntimeError):
     """No CUDA device, or fewer than the cell asks for."""
+
+
+class BadModel(ValueError):
+    """A configuration's ``reference`` names no model module, or one that
+    lacks a name of the interface."""
 
 
 def load_spec(root: str = ROOT) -> dict:
@@ -66,13 +74,39 @@ def cell_metrics(spec: dict, cell: dict, trace: bool):
             if (cell["name"] in m["workloads"] if "workloads" in m else m["moves"] in moved)]
 
 
-def reader(name: str, here: str = HERE):
-    """``benchmark/metrics/<name>.py``'s ``read``."""
-    path = os.path.join(here, "metrics", f"{name}.py")
-    mod_spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name}", path)
+def _load(path: str, name: str):
+    mod_spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str, here: str = HERE):
+    """``benchmark/metrics/<name>.py``'s ``read``."""
+    return _load(os.path.join(here, "metrics", f"{name}.py"), f"benchmark_metric_{name}").read
+
+
+def load_model(config: dict, root: str = ROOT):
+    """The model module that the configuration file ``config`` names under
+    ``reference``: a ``.py`` file under ``<root>/benchmark/``, its path
+    relative to ``root``, loaded by path.  Raises :class:`BadModel`, naming
+    the file and what is missing, where there is no such file or it lacks a
+    function of ``benchmark.reference.MODEL_INTERFACE``."""
+    from benchmark.reference import MODEL_INTERFACE
+
+    rel = config.get("reference")
+    here = os.path.realpath(os.path.join(root, "benchmark"))
+    path = os.path.realpath(os.path.join(root, rel)) if isinstance(rel, str) else ""
+    if not (path.startswith(here + os.sep) and path.endswith(".py") and os.path.isfile(path)):
+        raise BadModel(f"configuration {config.get('name')!r}: its reference {rel!r} is no "
+                       f"model module: no .py file of that path under {here}")
+    mod = _load(path, "benchmark_model_" + os.path.basename(path)[:-3])
+    missing = [n for n in MODEL_INTERFACE if not callable(getattr(mod, n, None))]
+    if missing:
+        raise BadModel(f"configuration {config.get('name')!r}: its model module {rel} lacks "
+                       f"{', '.join(missing)} (a model module gives "
+                       f"{', '.join(MODEL_INTERFACE)})")
+    return mod
 
 
 def program_params(config: dict, traffic: dict) -> dict:
@@ -99,9 +133,10 @@ def loaded_forbidden():
 
 class Cell:
     """The program set up for one cell from one seed: the trainer, its
-    state and data on ``device``, the benchmark's initial weights loaded."""
+    state and data on ``device``, the benchmark's initial weights of the
+    model module ``model`` loaded."""
 
-    def __init__(self, params: dict, traffic: dict, seed: int, device: str):
+    def __init__(self, params: dict, traffic: dict, seed: int, device: str, model):
         import torch
 
         from benchmark import data as bench_data
@@ -120,7 +155,7 @@ class Cell:
         self.state = self.trainer.init_state(seed)
         gen = torch.Generator(device=device)
         gen.manual_seed(weight_seed(seed))
-        self.weights0 = ref.make_weights(params, self.trials, gen, device)
+        self.weights0 = ref.make_weights(model.layout(params), self.trials, gen, device)
         for role, module in self.trainer.models.items():
             module.load_state_dict(self.weights0[role])
         self.epoch = 0
@@ -169,10 +204,11 @@ class PermTap:
 
 
 def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
-        stderr=None, device: str = "cuda", resize=None) -> dict:
+        stderr=None, device: str = "cuda", resize=None, root: str = ROOT) -> dict:
     """One run (see ``benchmark/run.py``); returns the result line's object.
-    ``device`` "cpu" and ``resize`` (a function that returns the cell's
-    params and traffic made small) serve the CPU tests."""
+    ``device`` "cpu", ``resize`` (a function that returns the cell's params
+    and traffic made small) and ``root`` (a tree with its own
+    ``BENCHMARK.json`` and ``benchmark/`` files) serve the CPU tests."""
     import torch
 
     from benchmark import check
@@ -181,8 +217,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
     stderr = sys.stderr if stderr is None else stderr
     from benchmark import trace as bench_trace
 
-    spec = load_spec()
-    cell, config, traffic = load_cell(workload, spec)
+    here = os.path.join(root, "benchmark")
+    spec = load_spec(root)
+    cell, config, traffic = load_cell(workload, spec, here)
+    model = load_model(config, root)
     on_gpu = device != "cpu"
     if on_gpu and (not torch.cuda.is_available()
                    or torch.cuda.device_count() < cell["chips"]):
@@ -193,7 +231,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
         params, traffic = resize(params, traffic)
     metrics = cell_metrics(spec, cell, trace)
 
-    c = Cell(params, traffic, seed, device)
+    c = Cell(params, traffic, seed, device, model)
     t0 = time.perf_counter()
     record = c.recorded_epoch()
     warmup_epoch_s = time.perf_counter() - t0
@@ -224,13 +262,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
         perms = tap.perms
 
     ctx = SimpleNamespace(
-        params=params, trials=c.trials, n_train=c.n_train, n_val=c.n_val,
+        params=params, model=model, trials=c.trials, n_train=c.n_train, n_val=c.n_val,
         train_aux=c.host[1], val_aux=c.host[3], perms=perms, profile=profile,
         setup_s=setup_s, warmup_epoch_s=warmup_epoch_s, rate=rate, window_s=window_s,
         epochs=epochs, peak_bytes=peak)
     values = {}
     for m in metrics:
-        v = reader(m["name"])(ctx)
+        v = reader(m["name"], here)(ctx)
         if v is not None:
             values[m["name"]] = {"value": v, "unit": m["unit"]}
 
@@ -241,7 +279,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
     where = {}
     r0 = time.perf_counter()
     try:
-        numbers = check.run_reference(params, record, host, 0, device, where)
+        numbers = check.run_reference(params, record, host, 0, device, where, model=model)
     except ref.DrawMismatch as e:
         # the program drew what the reference cannot follow: no number holds
         print(f"check: the reference cannot follow the program's draws: {e}", file=stderr)

@@ -34,13 +34,14 @@ def reading(workload, mode, seed, device="cuda", resize=None):
 
     spec = harness.load_spec()
     cell, config, traffic = harness.load_cell(workload, spec)
+    model = harness.load_model(config)
     params = harness.program_params(config, traffic)
     if resize is not None:
         params, traffic = resize(params, traffic)
     params.update(faults.CONTROLS.get(mode, {}))
     t0 = time.perf_counter()
     with faults.planted(mode if mode in faults.FAULTS else None):
-        c = harness.Cell(params, traffic, seed, device)
+        c = harness.Cell(params, traffic, seed, device, model)
         record = c.recorded_epoch()
         host = c.host
         c.free()
@@ -48,7 +49,7 @@ def reading(workload, mode, seed, device="cuda", resize=None):
         torch.cuda.empty_cache()
     t1 = time.perf_counter()
     where = {}
-    numbers = check.run_reference(params, record, host, 0, device, where)
+    numbers = check.run_reference(params, record, host, 0, device, where, model=model)
     return {"workload": workload, "mode": mode, "seed": seed, "numbers": numbers,
             "where": {k: str(v) for k, v in where.items()},
             "program_s": t1 - t0, "reference_s": time.perf_counter() - t1}

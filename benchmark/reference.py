@@ -1,18 +1,39 @@
 """The plain reference of one RankAAE trial: float32 PyTorch, one trial at a
 time, no kernel, no stacking, no fused block.
 
-It follows the published RankAAE model and training protocol
-(``sc/clustering/model.py``, ``sc/clustering/trainer.py`` and
-``sc/utils/functions.py`` of the reference package): the "normal" and
-"compact" conv autoencoders built from EncodingBlocks and DecodingBlocks,
-the FC discriminator behind a gradient-reversal layer, the faithful batch
-of five optimizer steps (adversarial, Kendall, reconstruction, mutual
-information, smoothness) with AdamW, and the validation pass with its five
-quality metrics (the Shapiro-Wilk W and the Spearman correlations from
-scipy).  Weights are a dict of tensors named as the modules' state dicts
-name them; a :class:`Draws` object hands out the random draws by site.
+It follows the published RankAAE training protocol
+(``sc/clustering/trainer.py`` and ``sc/utils/functions.py`` of the
+reference package): the faithful batch of five optimizer steps
+(adversarial, Kendall, reconstruction, mutual information, smoothness)
+with AdamW, and the validation pass with its five quality metrics (the
+Shapiro-Wilk W and the Spearman correlations from scipy).  Weights are a
+dict of tensors named as the modules' state dicts name them; a
+:class:`Draws` object hands out the random draws by site.
 
-Nothing here imports the program under test.  Set
+This file is the protocol, the same for every form.  The model (the
+encoder, the decoder and the discriminator of ``sc/clustering/model.py``)
+comes from a model module: a Python file under ``benchmark/`` that a
+configuration file names under its ``reference`` key, loaded by path
+(``benchmark/harness.py::load_model``).  Every model module gives the
+functions of :data:`MODEL_INTERFACE`, each taking the configuration's keys
+``cfg`` first:
+
+* ``layout(cfg)``: ``{"enc"|"dec"|"dis": [(name, shape, init), ...]}``, the
+  tensors of each module in the order :func:`make_weights` draws them
+  (:class:`Layout` collects them);
+* ``encoder(cfg, n, spec)``: (B, dim_in) spectra -> (B, nstyle) styles, with
+  ``n`` a :class:`Net` over the encoder's weights;
+* ``decoder(cfg, n, z)``: (B, nstyle) -> (B, dim_out) spectra;
+* ``discriminator(cfg, n, x, beta)``: (B, nstyle) -> (B, 1) logits, behind
+  the gradient reversal of strength ``beta`` (:func:`grad_reverse`);
+* ``adversarial_logits(cfg, n, z_real, styles, beta) -> (real, fake)``: the
+  adversarial step's logits of the prior's draws and of the styles, each
+  (B, 1), in as many passes as the discriminator needs (one where it keeps
+  no batch statistics, two where it does);
+* ``macs(cfg)``: the encoder's, the decoder's and the discriminator's
+  multiply-adds per spectrum, for ``benchmark/flops.py::epoch_flops``.
+
+Nothing here or in a model module imports the program under test.  Set
 ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False before running it on a GPU
 (:func:`float32_only`).
@@ -28,23 +49,8 @@ import scipy.stats
 import torch
 import torch.nn.functional as F
 
-#: (c_in, c_out, in_len, out_len, kernel, excitation) of the encoders'
-#: stride-2 EncodingBlocks (model.py:232-295); the first block's in_len is
-#: the spectrum's length
-ENCODERS = {
-    "normal": ((1, 4, 256, 128, 11, 4), (4, 4, 128, 64, 11, 4), (4, 4, 64, 32, 7, 2),
-               (4, 4, 32, 16, 7, 2), (4, 4, 16, 8, 5, 1)),
-    "compact": ((1, 4, 256, 64, 11, 4), (4, 4, 64, 16, 7, 2), (4, 4, 16, 8, 5, 1)),
-}
-#: the decoders (model.py:381-474): (c_in, c_out, in_len, excitation, out_len)
-#: of each DecodingBlock (c_in None: nstyle; out_len -1: 4 in_len), then
-#: (c_in, c_out) of each stride-1 length-256 EncodingBlock (kernel 11,
-#: excitation 2)
-DECODERS = {
-    "normal": (((None, 8, 1, 1, -1), (8, 4, 4, 2, -1), (4, 4, 16, 2, -1), (4, 4, 64, 4, -1)),
-               ((4, 4), (4, 4), (4, 2), (2, 2), (2, 2))),
-    "compact": (((None, 8, 1, 1, 8), (8, 4, 8, 2, 64), (4, 4, 64, 4, -1)), ((4, 4),)),
-}
+#: what every model module gives (the module docstring says what each does)
+MODEL_INTERFACE = ("layout", "encoder", "decoder", "discriminator", "adversarial_logits", "macs")
 #: the quality metrics' weights (trainer.py:35-36)
 METRIC_WEIGHTS = (1.0, -1.0, -0.01, -1.0, -1.0)
 #: optimizer -> (modules it steps, lr ratio key, betas scaled by this key)
@@ -70,7 +76,7 @@ def float32_only() -> None:
 # the weights' layout
 # --------------------------------------------------------------------------- #
 
-class _Layout:
+class Layout:
     """Collects (name, shape, init) of a module's tensors; init is a float
     bound b for U(-b, b), or ("fill", v) for a constant."""
 
@@ -101,97 +107,13 @@ class _Layout:
                          (f"{name}.running_var", (c,), ("fill", 1.0))]
 
 
-def _encoding_block_layout(lay, p, c_in, c_out, in_len, out_len, k, stride, e):
-    g = math.gcd(c_in, c_out)
-    if c_in > 1:
-        lay.bn(f"{p}.bn1", c_in)
-    lay.conv(f"{p}.conv1", c_in, c_out, k)
-    lay.prelu(f"{p}.relu1", c_out)
-    lay.bn(f"{p}.bn2", c_out)
-    lay.conv(f"{p}.conv2", c_out, c_out, k)
-    lay.prelu(f"{p}.relu2", c_out)
-    if stride > 1 or c_in != c_out:
-        lay.conv(f"{p}.conv_short", c_in, c_out, in_len // out_len, groups=g)
-        lay.prelu(f"{p}.relu_short", c_out)
-    _excitation_layout(lay, p, c_in, c_out, in_len, out_len, e)
-
-
-def _decoding_block_layout(lay, p, c_in, c_out, in_len, out_len, e):
-    g = math.gcd(c_in, c_out)
-    if in_len > 1:
-        lay.bn(f"{p}.bn1", c_in)
-    lay.conv_t(f"{p}.conv1", c_in, c_out, 2)
-    lay.prelu(f"{p}.relu1", c_out)
-    lay.bn(f"{p}.bn2", c_out)
-    lay.conv_t(f"{p}.conv2", c_out, c_out, out_len // (in_len * 2))
-    lay.prelu(f"{p}.relu2", c_out)
-    lay.conv_t(f"{p}.conv_short", c_in, c_out, out_len // in_len, groups=g)
-    lay.prelu(f"{p}.relu_short", c_out)
-    _excitation_layout(lay, p, c_in, c_out, in_len, out_len, e)
-
-
-def _excitation_layout(lay, p, c_in, c_out, in_len, out_len, e):
-    lay.linear(f"{p}.fc1", in_len, e)
-    lay.prelu(f"{p}.relu_excit_1", c_in)
-    lay.linear(f"{p}.fc2", e, out_len)
-    lay.prelu(f"{p}.relu_excit_2", c_in)
-    if c_in != c_out:
-        lay.bn(f"{p}.bn_excit", c_in)
-        lay.conv(f"{p}.conv_excit", c_in, c_out, 1, groups=math.gcd(c_in, c_out))
-        lay.prelu(f"{p}.relu_excit_3", c_out)
-
-
-def decoder_blocks(cfg):
-    """The decoder's (c_in, c_out, in_len, excitation, out_len) DecodingBlocks
-    with nstyle and out_len filled in, and its (c_in, c_out) EncodingBlocks."""
-    dec, enc = DECODERS[cfg["ae_form"]]
-    blocks = []
-    for c_in, c_out, in_len, e, out_len in dec:
-        blocks.append((cfg["nstyle"] if c_in is None else c_in, c_out, in_len, e,
-                       out_len if out_len > 0 else 4 * in_len))
-    return blocks, enc
-
-
-def layout(cfg) -> Dict[str, List[Tuple[str, tuple, object]]]:
-    """``{"enc"|"dec"|"dis": [(name, shape, init), ...]}`` of ``cfg`` (a
-    dict of the configuration's keys)."""
-    out = {}
-    lay = _Layout()
-    for i, (c_in, c_out, in_len, out_len, k, e) in enumerate(ENCODERS[cfg["ae_form"]]):
-        in_len = cfg["dim_in"] if i == 0 else in_len
-        _encoding_block_layout(lay, f"block{i}", c_in, c_out, in_len, out_len, k, 2, e)
-    lay.linear("lin3", 32, cfg["nstyle"])
-    lay.bn("bn_style", cfg["nstyle"])
-    out["enc"] = lay.entries
-
-    lay = _Layout()
-    dblocks, eblocks = decoder_blocks(cfg)
-    for i, (c_in, c_out, in_len, e, out_len) in enumerate(dblocks):
-        _decoding_block_layout(lay, f"dblock{i}", c_in, c_out, in_len, out_len, e)
-    for i, (c_in, c_out) in enumerate(eblocks):
-        _encoding_block_layout(lay, f"eblock{i}", c_in, c_out, 256, 256, 11, 1, 2)
-    lay.bn("bn_out", eblocks[-1][1])
-    lay.conv("conv_out", eblocks[-1][1], 1, 1)
-    out["dec"] = lay.entries
-
-    lay = _Layout()
-    width = cfg["nstyle"]
-    for i in range(cfg["FC_discriminator_layers"] - 1):
-        lay.linear(f"lin{i}", width, 64)
-        lay.prelu(f"prelu{i}", 64)
-        width = 64
-    lay.linear("lin_out", width, 1)
-    out["dis"] = lay.entries
-    return out
-
-
-def make_weights(cfg, trials: int, generator: torch.Generator, device
+def make_weights(lay, trials: int, generator: torch.Generator, device
                  ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Every trial's initial weights, stacked (T, ...), in one draw of
-    uniforms from ``generator``: U(+-1/sqrt(fan_in)) for the weights and
-    biases (torch's default), PReLU slopes 0.01, BatchNorm statistics
-    (0, 1)."""
-    lay = layout(cfg)
+    """Every trial's initial weights of the layout ``lay`` (a model module's
+    ``layout(cfg)``), stacked (T, ...), in one draw of uniforms from
+    ``generator``, role by role and entry by entry in the layout's order:
+    U(+-1/sqrt(fan_in)) for the weights and biases (torch's default), PReLU
+    slopes 0.01, BatchNorm statistics (0, 1)."""
     sizes = [trials * math.prod(shape) for role in lay for _, shape, init in lay[role]
              if not isinstance(init, tuple)]
     u = torch.rand(sum(sizes), generator=generator, device=device).mul_(2.0).sub_(1.0)
@@ -284,74 +206,6 @@ class Net:
         return torch.where(self.draws.mask(x.shape), x / keep, torch.zeros_like(x))
 
 
-def encoding_block(n: Net, p, x, c_in, c_out, in_len, out_len, k, stride):
-    """EncodingBlock (model.py:24-100)."""
-    out = n.bn(f"{p}.bn1", x) if c_in > 1 else x
-    residual = out
-    pad = (k - 1) // 2
-    out = F.pad(out, (pad, pad), mode="replicate")
-    out = n.prelu(f"{p}.relu1", n.conv(f"{p}.conv1", out, stride=in_len // (out_len * stride)))
-    out = n.prelu(f"{p}.relu2", n.conv(f"{p}.conv2", n.bn(f"{p}.bn2", out), stride=stride,
-                                       padding=pad))
-    if stride > 1 or c_in != c_out:
-        s = in_len // out_len
-        res = n.prelu(f"{p}.relu_short", n.conv(f"{p}.conv_short", residual, stride=s,
-                                                groups=math.gcd(c_in, c_out)))
-    else:
-        res = residual
-    excit = n.drop(residual) if in_len > 10 else residual
-    return out + res + excitation(n, p, excit, c_in, c_out)
-
-
-def decoding_block(n: Net, p, x, c_in, c_out, in_len, out_len):
-    """DecodingBlock (model.py:103-174): transposed convolutions with kernel
-    equal to stride."""
-    out = n.bn(f"{p}.bn1", x) if in_len > 1 else x
-    residual = out
-    out = n.prelu(f"{p}.relu1", n.conv_t(f"{p}.conv1", out, 2))
-    out = n.prelu(f"{p}.relu2", n.conv_t(f"{p}.conv2", n.bn(f"{p}.bn2", out),
-                                         out_len // (in_len * 2)))
-    res = n.prelu(f"{p}.relu_short", n.conv_t(f"{p}.conv_short", residual, out_len // in_len,
-                                              groups=math.gcd(c_in, c_out)))
-    excit = n.drop(residual) if in_len > 10 else residual
-    return out + res + excitation(n, p, excit, c_in, c_out)
-
-
-def excitation(n: Net, p, x, c_in, c_out):
-    x = n.prelu(f"{p}.relu_excit_1", n.linear(f"{p}.fc1", x))
-    x = n.prelu(f"{p}.relu_excit_2", n.linear(f"{p}.fc2", x))
-    if c_in != c_out:
-        x = n.prelu(f"{p}.relu_excit_3", n.conv(f"{p}.conv_excit", n.bn(f"{p}.bn_excit", x),
-                                                groups=math.gcd(c_in, c_out)))
-    return x
-
-
-def encoder(cfg, n: Net, spec):
-    """(B, dim_in) -> (B, nstyle): the conv blocks, a Linear from the 32
-    flattened features, an affine-free BatchNorm."""
-    x = spec[:, None, :]
-    for i, (c_in, c_out, in_len, out_len, k, _) in enumerate(ENCODERS[cfg["ae_form"]]):
-        in_len = cfg["dim_in"] if i == 0 else in_len
-        x = encoding_block(n, f"block{i}", x, c_in, c_out, in_len, out_len, k, 2)
-    return n.bn("bn_style", n.linear("lin3", x.reshape(x.shape[0], 32)))
-
-
-def decoder(cfg, n: Net, z):
-    """(B, nstyle) -> (B, 256): DecodingBlocks from length 1 to 256,
-    stride-1 EncodingBlocks, BatchNorm, a 1x1 convolution, Softplus(beta=2)
-    or ReLU."""
-    dblocks, eblocks = decoder_blocks(cfg)
-    x = z[:, :, None]
-    for i, (c_in, c_out, in_len, _, out_len) in enumerate(dblocks):
-        x = decoding_block(n, f"dblock{i}", x, c_in, c_out, in_len, out_len)
-    for i, (c_in, c_out) in enumerate(eblocks):
-        x = encoding_block(n, f"eblock{i}", x, c_in, c_out, 256, 256, 11, 1)
-    x = n.conv("conv_out", n.bn("bn_out", x))[:, 0, :]
-    if cfg["decoder_activation"] == "Softplus":
-        return F.softplus(x, beta=2.0, threshold=20.0)
-    return torch.relu(x)
-
-
 class _Reverse(torch.autograd.Function):
     """Gradient reversal (model.py:8-22): identity forward, -beta * g back."""
 
@@ -365,16 +219,8 @@ class _Reverse(torch.autograd.Function):
         return -ctx.beta * g, None
 
 
-def discriminator(cfg, n: Net, x, beta):
-    """DiscriminatorFC (model.py:631-663): train-mode N(0, dis_noise) input
-    noise, gradient reversal, [Linear -> PReLU -> Dropout] x (layers - 1),
-    Linear -> one logit."""
-    if n.train:
-        x = x + cfg["dis_noise"] * n.draws.normal("dis_noise", x.shape)
-    x = _Reverse.apply(x, beta)
-    for i in range(cfg["FC_discriminator_layers"] - 1):
-        x = n.drop(n.prelu(f"prelu{i}", n.linear(f"lin{i}", x)))
-    return n.linear("lin_out", x)
+def grad_reverse(x, beta):
+    return _Reverse.apply(x, beta)
 
 
 # --------------------------------------------------------------------------- #
@@ -485,12 +331,12 @@ STEPS = (("adversarial", "adversarial", "dis"), ("correlation", "correlation", "
 
 
 class Trial:
-    """One trial: its weights and statistics ``w[role][name]`` (float32, on
-    one device) and its five optimizers, each optionally started from
-    ``moments[opt] = (count, mu, nu)``."""
+    """One trial of the model module ``model``: its weights and statistics
+    ``w[role][name]`` (float32, on one device) and its five optimizers,
+    each optionally started from ``moments[opt] = (count, mu, nu)``."""
 
-    def __init__(self, cfg, weights, device, moments=None):
-        self.cfg, self.device = cfg, device
+    def __init__(self, cfg, weights, device, moments=None, *, model):
+        self.cfg, self.device, self.model = cfg, device, model
         self.w = {role: {n: t.detach().clone().to(device) for n, t in sd.items()}
                   for role, sd in weights.items()}
         self.params = {}
@@ -535,23 +381,19 @@ class Trial:
         begun by :meth:`begin`: its train-mode forwards, its loss, the
         gradient over its optimizer's leaves and the AdamW update.  Returns
         the loss (a float) and the gradients by leaf name."""
-        cfg, spec_in = self.cfg, self.spec_in
+        cfg, spec_in, model = self.cfg, self.spec_in, self.model
         enc, dec, dis = self.nets(True, draws)
-        E = lambda x: encoder(cfg, enc, x)          # noqa: E731
-        D = lambda z: decoder(cfg, dec, z)          # noqa: E731
+        E = lambda x: model.encoder(cfg, enc, x)    # noqa: E731
+        D = lambda z: model.decoder(cfg, dec, z)    # noqa: E731
         if name == "adversarial":
-            # GRL: the encoder's styles as fakes, the prior's draws as reals,
-            # in one pass (the FC discriminator keeps no batch statistics, so
-            # this is the two passes of functions.py:109-132, its noise and
-            # masks drawn for both at once); the dead decode updates
-            # statistics only
+            # GRL (functions.py:109-132): the encoder's styles as fakes, the
+            # prior's draws as reals; the dead decode updates statistics only
             styles = E(spec_in)
             with torch.no_grad():
                 D(styles)
-            n_real = self.z_real.shape[0]
-            logits = discriminator(cfg, dis, torch.cat([self.z_real, styles]),
-                                   alpha_schedule(cfg, epoch))[:, 0]
-            loss = adversarial_loss(logits[:n_real], logits[n_real:])
+            real, fake = model.adversarial_logits(cfg, dis, self.z_real, styles,
+                                                  alpha_schedule(cfg, epoch))
+            loss = adversarial_loss(real[:, 0], fake[:, 0])
         elif name == "correlation":
             loss = kendall_loss(aux, E(spec_in)[:, :cfg["n_aux"]], cfg["kendall_activation"])
         elif name == "reconstruction":
@@ -574,20 +416,20 @@ class Trial:
     def validate(self, val_spec, val_aux, epoch: int, draws: Draws, avg_mi: float):
         """The validation pass (trainer.py:206-304) in eval mode; returns its
         losses, the amplitude gain and the five quality metrics."""
-        cfg = self.cfg
+        cfg, model = self.cfg, self.model
         enc, dec, dis = self.nets(False, draws)
-        z = encoder(cfg, enc, val_spec)
-        out = decoder(cfg, dec, z)
+        z = model.encoder(cfg, enc, val_spec)
+        out = model.decoder(cfg, dec, z)
         ratio = out.mean(dim=-1).abs() / val_spec.mean(dim=-1).abs()
         r = torch.sort(ratio).values
         n = r.shape[0]
         gain = (r[(n - 1) // 2] + r[n // 2]) / 2.0
         z_sample = draws.normal("z_val", (n, cfg["nstyle"]))
-        mi = F.mse_loss(encoder(cfg, enc, decoder(cfg, dec, z_sample)), z_sample)
+        mi = F.mse_loss(model.encoder(cfg, enc, model.decoder(cfg, dec, z_sample)), z_sample)
         z_real = draws.normal("z_real_val", (cfg["batch_size"], cfg["nstyle"]))
         beta = alpha_schedule(cfg, epoch)
-        dis_v = adversarial_loss(discriminator(cfg, dis, z_real, beta)[:, 0],
-                                 discriminator(cfg, dis, z, beta)[:, 0])
+        dis_v = adversarial_loss(model.discriminator(cfg, dis, z_real, beta)[:, 0],
+                                 model.discriminator(cfg, dis, z, beta)[:, 0])
         out_v = {"recon": F.mse_loss(out, val_spec),
                  "aux": kendall_loss(val_aux, z[:, :cfg["n_aux"]], cfg["kendall_activation"]),
                  "smooth": smooth_loss(out), "mi": mi, "dis": dis_v, "gain": gain}

@@ -9,7 +9,7 @@ import pytest
 
 from benchmark import check, faults, harness, readings
 
-CELLS = ("normal-train", "compact-train")
+CELLS = ("normal-train-t256", "compact-train-t256")
 
 
 def limits(workload):
@@ -32,15 +32,15 @@ def test_port_agrees_with_the_reference(workload, capsys):
 
 @pytest.mark.parametrize("mode", ("bf16",) + faults.FAULTS)
 def test_control_and_faults_are_not_correct(mode):
-    r = readings.reading("compact-train", mode, 2**31 + 12, "cpu", readings.small)
-    correct, checks = check.judge(r["numbers"], limits("compact-train"))
+    r = readings.reading("compact-train-t256", mode, 2**31 + 12, "cpu", readings.small)
+    correct, checks = check.judge(r["numbers"], limits("compact-train-t256"))
     assert not correct, checks
 
 
 @pytest.mark.parametrize("fault", faults.FAULTS)
 def test_a_run_with_a_broken_path_is_not_correct(fault):
     with faults.planted(fault):
-        result = small_run("compact-train", 2**31 + 13)
+        result = small_run("compact-train-t256", 2**31 + 13)
     assert not result["correct"], result["checks"]
 
 
@@ -48,15 +48,16 @@ def test_draws_and_start_are_checked():
     """A draw the program makes from another distribution, or weights that
     are not the benchmark's, each fail the check."""
     spec = harness.load_spec()
-    cell, config, traffic = harness.load_cell("compact-train", spec)
+    cell, config, traffic = harness.load_cell("compact-train-t256", spec)
     params, traffic = readings.small(harness.program_params(config, traffic), traffic)
-    c = harness.Cell(params, traffic, 5, "cpu")
+    model = harness.load_model(config)
+    c = harness.Cell(params, traffic, 5, "cpu", model)
     record = c.recorded_epoch()
     host = c.host
     perm = record["head"][0]
     record["head"][0] = (perm[0], perm[1], perm[2].clone().fill_(0))
     record["weights0"]["dis"]["lin_out.bias"] += 1.0
-    numbers = check.run_reference(params, record, host, 0, "cpu")
+    numbers = check.run_reference(params, record, host, 0, "cpu", model=model)
     assert numbers["draws"] > 0 and numbers["start"] > 0
 
 
@@ -82,14 +83,15 @@ def test_combined_metric_is_held_by_the_size_of_its_terms():
     from benchmark import reference as ref
 
     spec = harness.load_spec()
-    cell, config, traffic = harness.load_cell("compact-train", spec)
+    cell, config, traffic = harness.load_cell("compact-train-t256", spec)
     params, traffic = readings.small(harness.program_params(config, traffic), traffic)
-    c = harness.Cell(params, traffic, 7, "cpu")
+    model = harness.load_model(config)
+    c = harness.Cell(params, traffic, 7, "cpu", model)
     record = c.recorded_epoch()
     host = c.host
     shift = 1e-3
     record["log"]["combined"] += shift
-    numbers = check.run_reference(params, record, host, 0, "cpu")
+    numbers = check.run_reference(params, record, host, 0, "cpu", model=model)
     terms = np.abs(np.multiply(ref.METRIC_WEIGHTS, record["log"]["metrics"].double().numpy()))
     largest = shift / terms.sum(axis=1).min()
     assert numbers["val"] == pytest.approx(largest, rel=1e-3)

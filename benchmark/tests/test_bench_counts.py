@@ -1,5 +1,9 @@
 """The operation and byte counts against hand counts and against PyTorch's
-own FLOP counter on the reference's layers."""
+own FLOP counter on the reference's layers, every configuration through
+its own model module."""
+import json
+import os
+
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
@@ -7,39 +11,45 @@ from torch.utils.flop_counter import FlopCounterMode
 from benchmark import flops, harness
 from benchmark import reference as ref
 
+CONFIGS = {c["name"]: c["file"] for c in harness.load_spec()["configs"]}
 
-def params(workload):
-    spec = harness.load_spec()
-    cell, config, traffic = harness.load_cell(workload, spec)
-    return harness.program_params(config, traffic)
+
+def config_file(name):
+    with open(os.path.join(harness.ROOT, CONFIGS[name])) as f:
+        return json.load(f)
 
 
 def test_encoding_block_by_hand():
+    conv = harness.load_model(config_file("fix-normal"))
     # the normal encoder's first block: 1 -> 4 channels, 256 -> 128, 11 taps,
     # excitation 4: conv1 (stride 1) 4*1*11*256, conv2 (stride 2) 4*4*11*128,
     # the shortcut 4*1*2*128, fc1 256*4, fc2 4*128, the 1x1 conv 4*1*128
-    assert flops.encoding_block_macs(1, 4, 256, 128, 11, 2, 4) == \
+    assert conv.encoding_block_macs(1, 4, 256, 128, 11, 2, 4) == \
         11264 + 22528 + 1024 + 1024 + 512 + 512
     # a decoders' stride-1 block, 4 -> 4 at 256, 11 taps, excitation 2: two
     # convs of 4*4*11*256 and the excitation's 4*(256*2 + 2*256)
-    assert flops.encoding_block_macs(4, 4, 256, 256, 11, 1, 2) == 2 * 45056 + 4096
+    assert conv.encoding_block_macs(4, 4, 256, 256, 11, 1, 2) == 2 * 45056 + 4096
 
 
-@pytest.mark.parametrize("workload", ("normal-train", "compact-train"))
-def test_model_counts_match_torch_flop_counter(workload):
-    cfg = params(workload)
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_model_counts_match_torch_flop_counter(name):
+    """The model module's ``macs`` against the counter on its own forwards:
+    the counter sees the convolutions and matrix products, which is all
+    that ``macs`` counts."""
+    config = config_file(name)
+    cfg, model = config["config"], harness.load_model(config)
     gen = torch.Generator().manual_seed(0)
     w = {role: {n: t[0] for n, t in sd.items()}
-         for role, sd in ref.make_weights(cfg, 1, gen, "cpu").items()}
+         for role, sd in ref.make_weights(model.layout(cfg), 1, gen, "cpu").items()}
     x = torch.rand(2, cfg["dim_in"])
-    counts = {}
-    for name, fn, arg in (("enc", ref.encoder, x), ("dec", ref.decoder, torch.randn(2, 6))):
+    z = torch.randn(2, cfg["nstyle"])
+    counts = []
+    for role, fn, args in (("enc", model.encoder, (x,)), ("dec", model.decoder, (z,)),
+                           ("dis", model.discriminator, (z, 1.0))):
         with FlopCounterMode(display=False) as fc:
-            fn(cfg, ref.Net(w[name], False), arg)
-        counts[name] = fc.get_total_flops() / 2 / 2
-    assert counts["enc"] == flops.encoder_macs(cfg)
-    # the decoder's count adds nothing the counter misses
-    assert counts["dec"] == flops.decoder_macs(cfg)
+            fn(cfg, ref.Net(w[role], False), *args)
+        counts.append(fc.get_total_flops() / 2 / 2)
+    assert tuple(counts) == model.macs(cfg)
 
 
 def test_kendall_bound_by_hand():

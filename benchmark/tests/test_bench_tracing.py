@@ -86,7 +86,7 @@ def test_device_times_missing_read_nothing(monkeypatch):
 
 @pytest.mark.chip
 def test_traced_run_reports_the_program_metrics(cuda):
-    r = harness.run("compact-train", 2**31 + 77, 1.0, True, time.perf_counter())
+    r = harness.run("compact-train-t256", 2**31 + 77, 1.0, True, time.perf_counter())
     for name in READERS:
         assert isinstance(r["metrics"][name]["value"], float), name
     ms = r["metrics"]
