@@ -2710,6 +2710,320 @@ def conv_epoch_repeatable(torch, cfg_path, splits, card, trials=CONV_TIMED_T):
         torch.cuda.empty_cache()
 
 
+
+#: 16d: the largest keep-mask of the benchmark's cells, a T 256 (B 1024, 4,
+#: 256) channel dropout, and its largest normal draw, spec_noise (B 1024, 256)
+DRAW_TIMED = (("keep_mask", (256, 1024, 4, 256)), ("normal", (256, 1024, 256)))
+#: phase 16: D1 (``ops/draws_cuda.py``) against its plain version on the
+#: card: (trials, a trial's shape), ragged and whole groups of four, and
+#: the benchmark cells' two largest draws
+DRAW_CASES = ((1, (8,)), (3, (5,)), (8, (1024, 6)), (4, (33, 4, 9)), (2, (7, 3)),
+              (256, (1024, 1)), (5, (4099,))) + tuple((s[0], s[1:]) for _, s in DRAW_TIMED)
+#: the second offset carries into the counter's second word within a call
+DRAW_OFFSETS = (0, 2 ** 32 - 3)
+DRAW_SEEDS = (0, 2 ** 33 + 17, 2 ** 64 - 8)
+#: the normals' largest gap to the plain version, in float32 ulps of the
+#: plain value: each side's r cos theta carries at most logf's 1 ulp
+#: (halved by the square root, plus its rounding: 1), sincosf's 2 and the
+#: product's rounding, 3.5 ulps against the exact value; twice that, 7,
+#: apart, and the plain version on the card calls the card's log, sin and cos
+DRAW_NORMAL_ULPS = 8
+DRAW_KEEP = 0.9
+DRAW_FORMS = (("compact", 8), ("FC", 8))
+#: 16a: the forms whose every D1 call of a training epoch is held to the
+#: plain version, as drawn and again at each of DRAW_OFFSETS
+DRAW_EPOCH_FORMS = (("compact", 8), ("normal", 8), ("FC", 8))
+#: the trace's names of D1 and of the per-trial generators' kernels it replaces
+DRAW_KERNEL = "trial_draws_kernel"
+TORCH_DRAW_KERNELS = ("distribution_elementwise", "randperm", "curand")
+
+
+def _ulps(torch, a, b):
+    """|a - b| in float32 ulps of b (the spacing above |b|)."""
+    mag = b.abs()
+    spacing = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    return float(((a - b).abs() / spacing).max())
+
+
+def _same_draw(torch, dc, mode, keys, offset, shape, keep, a=None):
+    """D1's draw (``a``, or a fresh one) against the plain version's: the
+    normals' gap in ulps, 0 for the other modes, which must be equal."""
+    if a is None:
+        a = dc.draw_kernel(mode, keys, offset, shape, keep)
+    b = dc.draw_plain(mode, keys, offset, shape, keep)
+    assert a.dtype == b.dtype and a.shape == b.shape, (mode, shape, a.dtype, b.dtype)
+    if mode != dc.NORMAL:
+        assert torch.equal(a, b), (mode, shape, offset)
+        return 0.0
+    ulps = _ulps(torch, a, b)
+    assert ulps <= DRAW_NORMAL_ULPS and torch.isfinite(a).all(), (shape, offset, ulps)
+    return ulps
+
+
+def check_draws(torch, dc, card):
+    """Phase 16a, first part: D1 against its plain version on the card,
+    every mode, DRAW_CASES x DRAW_OFFSETS x DRAW_SEEDS: bits, uniforms and
+    masks bit-identical, normals within DRAW_NORMAL_ULPS.  Returns the
+    normals' largest gap in ulps."""
+    worst = 0.0
+    for trials, shape in DRAW_CASES:
+        for offset in DRAW_OFFSETS:
+            for seed in DRAW_SEEDS:
+                keys = dc.keys_tensor([seed + t for t in range(trials)], "cuda")
+                full = (trials, *shape)
+                for mode in (dc.BITS, dc.UNIFORM, dc.KEEP, dc.NORMAL):
+                    worst = max(worst, _same_draw(torch, dc, mode, keys, offset, full,
+                                                  DRAW_KEEP))
+                torch.cuda.empty_cache()
+    print(f"16a: D1 against its plain version on the card, {len(DRAW_CASES)} shapes (the "
+          f"largest {[s for _, s in DRAW_TIMED]}) x offsets {list(DRAW_OFFSETS)} x seeds "
+          f"{list(DRAW_SEEDS)}: bits, uniforms and keep-masks bit-identical; normals at most "
+          f"{worst:g} ulps apart (bound {DRAW_NORMAL_ULPS}) [{card}]")
+    return worst
+
+
+def check_epoch_draws(torch, dc, cfg_path, splits, card):
+    """Phase 16a, second part: every D1 call of one training epoch of each
+    of DRAW_EPOCH_FORMS (seed 2^33 + 17) held to the plain version on the
+    card as it was drawn, and each distinct (mode, shape, keep) of the
+    epoch again at each of DRAW_OFFSETS: bits, uniforms and masks
+    bit-identical, normals within DRAW_NORMAL_ULPS.  Returns the normals'
+    largest gap in ulps."""
+    from rankaae_tpu_torch.models import primitives as P
+    from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+    from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
+
+    worst = 0.0
+    kernel = dc.draw
+    for form, trials in DRAW_EPOCH_FORMS:
+        params = Parameters.from_yaml(cfg_path)
+        params.update({"ae_form": form})
+        cfg = TrainConfig.from_parameters(params)
+        P.set_matmul_precision(cfg.matmul_precision)
+        data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
+        core = RankAAETrainer(cfg, n_train=len(splits[0]), n_val=len(splits[2]),
+                              trials=trials, device="cuda")
+        state = core.init_state(DRAW_SEEDS[1])
+        calls, sites = [0], {}
+
+        def held(mode, keys, offset, shape, keep=1.0):
+            a = kernel(mode, keys, offset, shape, keep)
+            gap = _same_draw(torch, dc, mode, keys, offset, tuple(shape), keep, a)
+            calls[0] += 1
+            sites[(mode, tuple(shape), float(keep))] = gap
+            return a
+
+        dc.draw = held
+        try:
+            state, _ = core.epoch_step(state, 0, data)
+            torch.cuda.synchronize()
+        finally:
+            dc.draw = kernel
+        keys = state.sampler._key_tensor
+        for (mode, shape, keep) in sites:
+            for offset in DRAW_OFFSETS:
+                sites[(mode, shape, keep)] = max(
+                    sites[(mode, shape, keep)],
+                    _same_draw(torch, dc, mode, keys, offset, shape, keep))
+        gap = max(sites.values())
+        worst = max(worst, gap)
+        assert calls[0] > 0 and any(m == dc.KEEP for m, _, _ in sites), (form, sites)
+        print(f"16a {form}, T {trials}: all {calls[0]} D1 calls of a training epoch equal to "
+              f"the plain version as drawn, and its {len(sites)} distinct draws "
+              f"{sorted((m, s) for m, s, _ in sites)} again at offsets {list(DRAW_OFFSETS)}; "
+              f"normals within {gap:g} ulps [{card}]")
+        del core, state, data
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _draw_program(sampler):
+    t = sampler.trials
+    return [sampler.normal("spec_noise", (t, 64, 256)), sampler.keep_mask((t, 64, 4, 33), 0.8),
+            sampler.permutation(4900), sampler.normal("z_real", (t, 1024, 5)),
+            sampler.keep_mask((t, 1024, 6), DRAW_KEEP), sampler.normal("dis_noise", (t, 3))]
+
+
+def sampler_draws(torch, card):
+    """Phase 16b: ``TrialSampler`` on the card (D1): T 4 equal to trials 0-3
+    of T 8 and trial g to the 1-trial run of seed s + g, bit for bit; the
+    CPU's plain-version sampler of the same seed equal in bits, masks and
+    permutations, within DRAW_NORMAL_ULPS in normals, in state; a state
+    taken mid-run and set on a fresh sampler giving the same next draws."""
+    from rankaae_tpu_torch.utils.sampler import TrialSampler
+
+    seed = 2 ** 33 + 17
+    t8 = _draw_program(TrialSampler(seed, 8, "cuda"))
+    t4 = TrialSampler(seed, 4, "cuda")
+    assert t4.philox
+    got4 = _draw_program(t4)
+    for a, b in zip(t8, got4):
+        assert torch.equal(a[:4], b), a.shape
+    for g in (0, 3, 7):
+        for a, b in zip(t8, _draw_program(TrialSampler(seed + g, 1, "cuda"))):
+            assert torch.equal(a[g], b[0]), (g, a.shape)
+    cpu = TrialSampler(seed, 4, "cpu")            # the card's route, by the plain version
+    cpu.philox = True
+    cpu._set_keys([seed + t for t in range(4)], 0)
+    ulps = 0.0
+    for a, b in zip(got4, _draw_program(cpu)):
+        if a.is_floating_point():
+            ulps = max(ulps, _ulps(torch, a.cpu(), b))
+        else:
+            assert torch.equal(a.cpu(), b), a.shape
+    assert ulps <= DRAW_NORMAL_ULPS, ulps
+    assert [s.tobytes() for s in t4.get_state()] == [s.tobytes() for s in cpu.get_state()]
+    fresh = TrialSampler(0, 4, "cuda")
+    fresh.set_state(t4.get_state())
+    for a, b in zip(_draw_program(t4), _draw_program(fresh)):
+        assert torch.equal(a, b)
+    print(f"16b: TrialSampler on the card: T 4 = trials 0-3 of T 8 and trial g (0, 3, 7) = the "
+          f"1-trial run of seed s + g, bit for bit, over normal, keep_mask and permutation "
+          f"draws; the CPU's plain-version sampler equal in masks, permutations and state, "
+          f"normals within {ulps:g} ulps; a state set mid-run gives the same next draws "
+          f"[{card}]")
+
+
+def draw_epoch_trace(torch, cfg_path, splits):
+    """One traced training epoch of each of DRAW_FORMS (after a warm-up
+    epoch): {form: D1's calls by the ``draw.launches`` counter, the
+    ``draw.*`` spans of the epoch, D1's kernels in the device trace and
+    their device ms, the generator kernels the trace shows, the spans'
+    device ms}."""
+    from rankaae_tpu_torch.models import primitives as P
+    from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+    from rankaae_tpu_torch.utils import tracing
+    from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
+
+    out = {}
+    for form, trials in DRAW_FORMS:
+        params = Parameters.from_yaml(cfg_path)
+        params.update({"ae_form": form})
+        cfg = TrainConfig.from_parameters(params)
+        P.set_matmul_precision(cfg.matmul_precision)
+        data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
+        core = RankAAETrainer(cfg, n_train=len(splits[0]), n_val=len(splits[2]),
+                              trials=trials, device="cuda")
+        state = core.init_state(0)
+        state, _ = core.epoch_step(state, 0, data)
+        torch.cuda.synchronize()
+        before = tracing.counters()
+        tracing.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            state, _ = core.epoch_step(state, 1, data)
+            torch.cuda.synchronize()
+        spans = [s for s in tracing.newest(tracing.spans(), "epoch")
+                 if s.name.startswith("draw.")]
+        traced, traced_ms, generators = 0, 0.0, {}
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if DRAW_KERNEL in evt.name:
+                traced += 1
+                traced_ms += (evt.time_range.end - evt.time_range.start) / 1e3
+            if any(k in evt.name for k in TORCH_DRAW_KERNELS):
+                generators[evt.name[:80]] = generators.get(evt.name[:80], 0) + 1
+        after = tracing.counters()
+        out[form] = {
+            "trials": trials,
+            "launches": int(after.get("draw.launches", 0) - before.get("draw.launches", 0)),
+            "elements": int(after.get("draw.elements", 0) - before.get("draw.elements", 0)),
+            "spans": len(spans), "traced": traced, "traced_ms": traced_ms,
+            "span_device_ms": sum(s.device_ms for s in spans), "generators": generators}
+        del core, state, data
+        torch.cuda.empty_cache()
+    return out
+
+
+def draw_epoch_main(argv) -> int:
+    """Phase 16c's traced epochs in a process of their own (``chip_smoke.py
+    --draw-epoch DATA OUT``): :func:`draw_epoch_trace` on the splits in
+    DATA, its result into OUT as JSON."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from rankaae_tpu_torch.ops import conv1d_cuda as cc
+    from rankaae_tpu_torch.ops import draws_cuda as dc
+
+    data_npz, out = argv
+    cc.build()
+    dc.build()
+    with np.load(data_npz) as z:
+        splits = tuple(z[k] for k in ("a", "b", "c", "d"))
+    res = draw_epoch_trace(torch, os.path.join(HERE, "example", "fix_config.yaml"), splits)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def draw_epoch_launches(np, splits, card):
+    """Phase 16c: :func:`draw_epoch_trace` in a fresh process: one D1 launch
+    a draw site, the same count in ``draw.launches``, in the epoch's
+    ``draw.*`` spans and in the device trace, and none of the per-trial
+    generators' kernels."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_draw_epoch_") as tmp:
+        data_npz, out = os.path.join(tmp, "data.npz"), os.path.join(tmp, "draw_epoch.json")
+        np.savez(data_npz, a=splits[0], b=splits[1], c=splits[2], d=splits[3])
+        res = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                              "--draw-epoch", data_npz, out], capture_output=True, text=True,
+                             timeout=900, cwd=HERE)
+        assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+        with open(out) as f:
+            runs = json.load(f)
+    for form, r in runs.items():
+        assert r["launches"] > 0 and r["launches"] == r["spans"] == r["traced"], (form, r)
+        assert not r["generators"], (form, r["generators"])
+        print(f"16c {form}, T {r['trials']}, a process of its own: one traced epoch's "
+              f"draw.launches {r['launches']} = its draw.* spans = the D1 kernels the device "
+              f"trace shows; {r['elements']} elements; no generator kernel; D1's device ms "
+              f"{r['traced_ms']:.3f}, the spans' device-stream ms {r['span_device_ms']:.3f} "
+              f"[{card}]")
+    return runs
+
+
+def time_draws(torch, dc, card):
+    """Phase 16d: D1 alone at DRAW_TIMED: ``ms`` CUDA events around 50
+    wrapper calls, ``device_ms`` 20 calls in one CUDA graph, ``plain_ms``
+    the plain version on the card, ``bound_ms`` the bytes written over
+    3.35 TB/s, ``library_ms`` one ``torch.rand`` (``randn``) over the whole
+    (T, ...) shape from one generator (the single-generator bar), and
+    ``per_trial_ms`` the route D1 replaced: a generator call a trial, the
+    stack and, for a mask, the compare.  Returns {draw: times}."""
+    rows = {}
+    for what, shape in DRAW_TIMED:
+        keys = dc.keys_tensor(range(shape[0]), "cuda")
+        mode = dc.KEEP if what == "keep_mask" else dc.NORMAL
+        out_bytes = torch.empty(0, dtype=dc.DTYPES[mode]).element_size() * \
+            int(torch.tensor(shape).prod())
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        lib = torch.rand if mode == dc.KEEP else torch.randn
+        gens = [torch.Generator(device="cuda") for _ in range(shape[0])]
+        for t, g in enumerate(gens):
+            g.manual_seed(t)
+
+        def per_trial():
+            draws = torch.stack([lib(shape[1:], generator=g, device="cuda") for g in gens])
+            return draws < DRAW_KEEP if mode == dc.KEEP else draws
+        rows[what] = {
+            "shape": list(shape),
+            "ms": time_ms(torch, lambda: dc.draw_kernel(mode, keys, 0, shape, DRAW_KEEP),
+                          reps=50, warmup=5),
+            "device_ms": graph_ms(torch, lambda: dc.draw_kernel(mode, keys, 0, shape,
+                                                                 DRAW_KEEP), reps=20),
+            "plain_ms": time_ms(torch, lambda: dc.draw_plain(mode, keys, 0, shape, DRAW_KEEP),
+                                reps=3, warmup=1),
+            "bound_ms": out_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": time_ms(torch, lambda: lib(shape, generator=gen, device="cuda"),
+                                  reps=20, warmup=3),
+            "per_trial_ms": time_ms(torch, per_trial, reps=5, warmup=2)}
+        rows[what]["roofline"] = rows[what]["bound_ms"] / rows[what]["device_ms"]
+        del gens
+        torch.cuda.empty_cache()
+        print(f"16d {what} {tuple(shape)}: " + json.dumps(rows[what]) + f" [{card}]")
+    return rows
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2724,6 +3038,7 @@ def main() -> int:
     from rankaae_tpu_torch.models.primitives import set_matmul_precision
     from rankaae_tpu_torch.ops import _nvcc
     from rankaae_tpu_torch.ops import conv1d_cuda as cc
+    from rankaae_tpu_torch.ops import draws_cuda as dc
     from rankaae_tpu_torch.ops import fused_block_cuda as fb
     from rankaae_tpu_torch.ops import kendall as tk
     from rankaae_tpu_torch.ops import kendall_cuda as kc
@@ -2737,13 +3052,14 @@ def main() -> int:
 
     # ---- 1. build ----------------------------------------------------- #
     t_start = t0 = time.perf_counter()
-    _nvcc.compile_all([kc.SOURCE, fb.SOURCE, cc.SOURCE])
+    _nvcc.compile_all([kc.SOURCE, fb.SOURCE, cc.SOURCE, dc.SOURCE])
     kc.build()
     fb.build()
     cc.build()
-    print(f"build: {kc.SOURCE.name}, {fb.SOURCE.name}, {cc.SOURCE.name} in parallel in "
-          f"{time.perf_counter() - t0:.2f} s")
-    for source in (kc.SOURCE, fb.SOURCE, cc.SOURCE):   # kept beside the library
+    dc.build()
+    print(f"build: {kc.SOURCE.name}, {fb.SOURCE.name}, {cc.SOURCE.name}, {dc.SOURCE.name} in "
+          f"parallel in {time.perf_counter() - t0:.2f} s")
+    for source in (kc.SOURCE, fb.SOURCE, cc.SOURCE, dc.SOURCE):   # kept beside the library
         regs = []
         for line in _nvcc.build_log(source).splitlines():
             if source != cc.SOURCE and ("entry function" in line or "Used" in line
@@ -3032,6 +3348,22 @@ def main() -> int:
     print(f"15: {time.perf_counter() - t0:.1f} s; phases 1-15: "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # ---- 16. the trial sampler's draws D1 ---------------------------------- #
+    t0 = time.perf_counter()
+    # D1's calls of phases 1-15 in this process (16's checks and timing loops
+    # are not counted)
+    draw_launches_main = int(tracing.counter("draw.launches"))
+    print(f"D1 calls of phases 1-15 in this process: {draw_launches_main}, "
+          f"{int(tracing.counter('draw.elements'))} elements")
+    draw_ulps = max(check_draws(torch, dc, card),
+                    check_epoch_draws(torch, dc, cfg_path, splits, card))
+    set_matmul_precision(cfg.matmul_precision)
+    sampler_draws(torch, card)
+    draw_epoch_launches(np, splits, card)
+    draw_times = time_draws(torch, dc, card)
+    print(f"16: {time.perf_counter() - t0:.1f} s; phases 1-16: "
+          f"{time.perf_counter() - t_start:.1f} s")
+
     for name in ("kendall_pair_sums", "kendall_grad_rows"):
         launches[name] += conv_launches[name] + trial_launches[name] + recal_launches[name] \
             + sum(run[1][name] for run in resume_runs.values()) + normal_launches[name] \
@@ -3075,6 +3407,12 @@ def main() -> int:
             "max_abs_err": conv_err["large"][name], "ms": conv[name]["ms"],
             "plain_ms": conv[name]["plain_ms"], "bound_ms": conv[name]["bound_ms"],
             "bound_by": "bytes", "library_ms": conv[name]["library_ms"], "device_ms": None})
+    d1 = draw_times["keep_mask"]
+    rows.append({
+        "name": "trial_draws", "route": "cuda", "source": "rankaae_tpu_torch/csrc/trial_draws.cu",
+        "replaces": None, "launches": draw_launches_main, "max_ulps_normal": draw_ulps,
+        "ms": d1["ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
+        "bound_by": "bytes", "library_ms": d1["library_ms"], "device_ms": d1["device_ms"]})
     print("library_ms: null — no single PyTorch call computes the Kendall pair sums "
           "or their gradient rows, nor the fused EncodingBlock (two convs, BNs, PReLUs, "
           "residual and excitation MLP); K3's row is at the serving shape C 4, B 1024; "
@@ -3083,7 +3421,9 @@ def main() -> int:
           "leaves its convolutions to XLA) at " + CONV_TIMED[0][0] + ", B 1024, T 32, "
           "max_abs_err their largest difference relative to the plain version's magnitude "
           "over 15a's cases at B 1024, T 32, library_ms cuDNN's, launches every call of "
-          "phases 1-14 in this process")
+          "phases 1-14 in this process; D1 (no TPU kernel: the JAX package draws with "
+          "jax.random) at a T 256 (B 1024, 4, 256) keep-mask, library_ms one torch.rand over "
+          "that shape from one generator, launches every call of phases 1-15")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3099,4 +3439,6 @@ if __name__ == "__main__":
         sys.exit(dp_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--conv-epoch"]:           # phase 15c's traced epochs
         sys.exit(conv_epoch_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--draw-epoch"]:           # phase 16c's traced epochs
+        sys.exit(draw_epoch_main(sys.argv[2:]))
     sys.exit(main())

@@ -358,7 +358,7 @@ class TrialLengthLinear(TrialLinear):
 
 class TrialChannelDropout(Dropout):
     """:class:`Dropout` over (B, T*C, L): the keep-mask is drawn (T, B, C, L),
-    trial t's from its own generator, as the single-trial (B, C, L) one."""
+    trial t's from its own stream, as the single-trial (B, C, L) one."""
 
     def __init__(self, trials: int, rate: float):
         super().__init__(rate)

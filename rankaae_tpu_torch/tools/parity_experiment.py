@@ -61,9 +61,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 STACK = "rankaae_tpu_torch"
-SEED_SCHEME = ("trial g of run_trials(seed=0) draws from generators seeded g; the JAX "
-               "package split PRNGKey(0) into its seeds, so seeds are not paired across "
-               "the stacks: only distributions over seeds compare")
+SEED_SCHEME = ("trial g of run_trials(seed=0) draws from streams seeded g (Philox keyed g "
+               "on the card, a generator seeded g on the CPU); the JAX package split "
+               "PRNGKey(0) into its seeds, so seeds are not paired across the stacks: only "
+               "distributions over seeds compare")
 #: the JAX script's per-epoch trace keys (``scripts/parity_experiment.py:423-426``)
 TRACE_KEYS = ("metrics", "val_gen", "val_dis", "val_smooth", "val_mi", "val_aux",
               "train_recon", "train_gen", "train_dis", "train_aux", "train_smooth",
@@ -573,7 +574,7 @@ def main(argv: Optional[List[str]] = None) -> Optional[OursRun]:
     args = ap.parse_args(argv)
     if args.rng is not None:
         ap.error("--rng is not ported: rng_impl selects the JAX package's XLA PRNG, and "
-                 "the port draws from torch generators")
+                 "the port draws from its own seeded streams")
     if args.mode in ("ref", "full"):
         ap.error(f"--mode {args.mode} trains the torch reference from its checkout, which "
                  "this repository does not hold; use the committed ref_seed_*.json with "

@@ -24,10 +24,11 @@ T trials live stacked in every module (``models/registry.py``), every
 tensor of a batch is (T, B, ...), every loss is (T,) and each optimizer
 differentiates the sum over trials (trials share no parameter, so each gets
 its own gradient), every learning rate, scheduler and tracker is per trial,
-and each trial draws from its own generator (``utils/sampler.py``): trial g
-of a T-trial run with seed s is the 1-trial run with seed s + g.  One
-launch of each kernel serves all T trials, for every form (K3, the conv
-decoders' fused eval-mode block, is one launch per trial).
+and each trial draws from its own stream (``utils/sampler.py``; on the
+card every trial's slice of a draw in one launch): trial g of a T-trial
+run with seed s is the 1-trial run with seed s + g.  One launch of each
+kernel serves all T trials, for every form (K3, the conv decoders' fused
+eval-mode block, is one launch per trial).
 
 Every form (FC, ``normal``, ``compact``, ``qved``) trains, with both
 discriminators, gradient reversal on or off (the non-GRL branch steps a D
@@ -145,7 +146,7 @@ class TrainState:
 
     opt: Dict[str, MomentState]          # one moment state per optimizer
     sched: Dict[str, PlateauState]       # one plateau state per optimizer, (T,) each
-    sampler: TrialSampler                # the run's random draws, one generator a trial
+    sampler: TrialSampler                # the run's random draws, one stream a trial
     #: the SWEEPABLE_HPARAMS per trial, host float32 (T,)
     hparams: Dict[str, np.ndarray]
     spec_noise: torch.Tensor             # hparams["spec_noise"] on the device, (T, 1, 1)
