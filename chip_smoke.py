@@ -187,6 +187,21 @@ Phases (any failure exits non-zero and prints no result):
    epoch's protocol makes and to the conv kernels the device trace shows,
    and no cuDNN convolution kernel; (d) the first epoch from a seeded state,
    run twice: every weight, statistic, moment and log bit-identical.
+16. the trial sampler's draws D1 (``ops/draws_cuda.py``) — (a) against its
+   plain version, at small shapes, the T 256 cells' largest and every call
+   of a T 8 epoch; (b) ``TrialSampler`` on the card; (c) a traced epoch in
+   a process of its own: D1's launches = spans = trace; (d) its times.
+17. the channel PReLUs and branch sums P1 (``ops/prelu_cuda.py``) — (a)
+   every P1 call of a T 8 training epoch of the normal, compact and compact
+   + CNN forms held to the plain version as called (forward and each dy bit
+   for bit, slope gradients within ``PRELU_DW_RTOL`` and bit-identical over
+   two calls), then each distinct call again at the cells' T 256; (b) its
+   times at ``PRELU_TIMED`` (a normal block's end at T 256, and the
+   one-channel excitation laid out (C, B, L)) beside the byte bound, the
+   plain version's and ``F.prelu`` and the adds' (``library_ms``); (c) in a
+   process of its own, a traced T 8 epoch of compact and normal: the P1
+   kernels of the trace = the ``prelu.*`` counters, the tail launches = the
+   block forwards run module by module, no PyTorch PReLU kernel.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Tolerances: loss rtol 1e-5 (atol
@@ -241,22 +256,30 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: the port's launch counters (``rankaae_tpu_torch/utils/tracing.py``) by the
 #: kernel names this script prints
 LAUNCH_COUNTERS = {"kendall_pair_sums": "kendall.fwd_launches",
-                   "kendall_grad_rows": "kendall.bwd_launches", "fused_block": "k3.launches"}
+                   "kendall_grad_rows": "kendall.bwd_launches", "fused_block": "k3.launches",
+                   "prelu_sum_fwd": "prelu.fwd_launches", "prelu_sum_bwd": "prelu.bwd_launches",
+                   "prelu_sum_tail": "prelu.tail_launches"}
+#: the kernels zero_launches() and read_launches() take where none is named
+MAIN_KERNELS = ("kendall_pair_sums", "kendall_grad_rows", "fused_block")
+#: P1's counters (forward launches, backward launches: two a call, and the
+#: forward launches that summed a block's branches)
+P1_KERNELS = ("prelu_sum_fwd", "prelu_sum_bwd", "prelu_sum_tail")
 
 
 def zero_launches(*kernels):
-    """Zero the launch counters of ``kernels`` (all three where none is named)."""
+    """Zero the launch counters of ``kernels`` (MAIN_KERNELS where none is
+    named)."""
     from rankaae_tpu_torch.utils import tracing
 
-    tracing.reset_counters(*(LAUNCH_COUNTERS[k] for k in kernels or LAUNCH_COUNTERS))
+    tracing.reset_counters(*(LAUNCH_COUNTERS[k] for k in kernels or MAIN_KERNELS))
 
 
 def read_launches(*kernels):
-    """The launches of ``kernels`` (all three where none is named) since
+    """The launches of ``kernels`` (MAIN_KERNELS where none is named) since
     their counters were last zeroed."""
     from rankaae_tpu_torch.utils import tracing
 
-    return {k: tracing.counter(LAUNCH_COUNTERS[k]) for k in kernels or LAUNCH_COUNTERS}
+    return {k: tracing.counter(LAUNCH_COUNTERS[k]) for k in kernels or MAIN_KERNELS}
 
 # H100 SXM published peaks (dense): HBM bytes/s and fp32 non-tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -764,7 +787,8 @@ def batch_parity(torch, np, cfg, loss_atol, leaf_atol, leaf_rtol=None, data=None
 def train_conv(torch, np, kc, fb, cfg_path, tmp, card, n_batch):
     """Phase 7a and 7b: the conv forms trained on the card through the
     facade, the trained normal-form bundle served card vs CPU.  Returns the
-    launches of the main path (7a: training, then serving)."""
+    launches of the main path (7a: training, then serving) and P1's by path
+    ({"normal": 7a's training, "compact": 7b's runs summed})."""
     from rankaae_tpu_torch import serve
     from rankaae_tpu_torch.data.synthetic import make_synthetic_xanes_csv
     from rankaae_tpu_torch.models.inference import InferenceModel
@@ -781,18 +805,21 @@ def train_conv(torch, np, kc, fb, cfg_path, tmp, card, n_batch):
         trainer = Trainer.from_data(csv, config_parameters=params, device="cuda",
                                     work_dir=work_dir, verbose=False)
         zero_launches()
+        zero_launches(*P1_KERNELS)
         metrics = trainer.train()
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches, p1 = read_launches(), read_launches(*P1_KERNELS)
         for key, values in trainer.logs.items():
             assert np.all(np.isfinite(values)), (overrides, key, values)
         assert np.all(np.isfinite(metrics)), (overrides, metrics)
-        return trainer, launches
+        # every block ends in P1; a backward call is two launches
+        assert p1["prelu_sum_tail"] > 0 and p1["prelu_sum_bwd"] % 2 == 0, (overrides, p1)
+        return trainer, launches, p1
 
     # ---- 7a: the normal form, the slice's main path ---------------------- #
     t0 = time.perf_counter()
     work = os.path.join(tmp, "normal")
-    trainer, launches = train({"ae_form": "normal"}, EPOCHS, work)
+    trainer, launches, p1_normal = train({"ae_form": "normal"}, EPOCHS, work)
     assert_tickets_clear(kc, "after conv training")
     with open(os.path.join(work, "losses.csv")) as f:
         header = f.readline().strip().split(",")
@@ -814,7 +841,8 @@ def train_conv(torch, np, kc, fb, cfg_path, tmp, card, n_batch):
         print(f"conv epoch {e} (normal): {sec:.4f} s, {n_train / sec:.1f} spectra/s "
               f"(val_recon {trainer.logs['val_recon'][e]:.6f}) [{card}]")
     print(f"7a train: normal form, {EPOCHS} epochs, launches {launches} (expected "
-          f"{expect}); three bundles written and reloaded; final metrics "
+          f"{expect}), P1 {json.dumps(p1_normal)}; three bundles written and reloaded; final "
+          f"metrics "
           f"{[float(m) for m in trainer.logs['metrics'][-1]]}")
 
     final = os.path.join(work, "final.mpk")
@@ -838,9 +866,11 @@ def train_conv(torch, np, kc, fb, cfg_path, tmp, card, n_batch):
 
     # ---- 7b: the other branches, short ----------------------------------- #
     t0 = time.perf_counter()
+    p1_compact = dict.fromkeys(P1_KERNELS, 0)
     for i, (label, overrides, epochs) in enumerate(BRANCH_RUNS):
-        tr, counts = train({"ae_form": "compact", **overrides}, epochs,
-                           os.path.join(tmp, f"branch{i}"))
+        tr, counts, p1 = train({"ae_form": "compact", **overrides}, epochs,
+                               os.path.join(tmp, f"branch{i}"))
+        p1_compact = {k: p1_compact[k] + p1[k] for k in P1_KERNELS}
         opt = tr.state.opt
         steps = epochs * n_batch
         if overrides.get("gradient_reversal", True):
@@ -855,9 +885,9 @@ def train_conv(torch, np, kc, fb, cfg_path, tmp, card, n_batch):
               f"{float(tr.logs['val_recon'][-1]):.6f}, train_dis "
               f"{float(tr.logs['train_dis'][-1]):.4f}, train_gen "
               f"{float(tr.logs['train_gen'][-1]):.4f}, epoch s "
-              f"{[round(x, 4) for x in tr.epoch_seconds]} [{card}]")
+              f"{[round(x, 4) for x in tr.epoch_seconds]}, P1 {json.dumps(p1)} [{card}]")
     print(f"7b: {len(BRANCH_RUNS)} runs in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, {"normal": p1_normal, "compact": p1_compact}
 
 
 # phase 8b: over two epochs phase 4's config is chaotic at its own learning
@@ -3024,6 +3054,335 @@ def time_draws(torch, dc, card):
         print(f"16d {what} {tuple(shape)}: " + json.dumps(rows[what]) + f" [{card}]")
     return rows
 
+
+# phase 17: the channel PReLUs and branch sums P1 (``ops/prelu_cuda.py``)
+#: 17a: the forms (ae_form, CNN discriminator) whose T 8 training epochs give
+#: P1's calls, each held to the plain version as called; the benchmark
+#: cells' T, at which each distinct call is held again
+PRELU_FORMS = (("normal", False), ("compact", False), ("compact", True))
+PRELU_EPOCH_T, PRELU_CELL_T = 8, 256
+#: the slope gradients' largest difference from the exact sum of the plain
+#: version's products (float32 products summed in float64) over its largest
+#: magnitude: the kernel sums in double.  PyTorch's float32 reduction over up
+#: to B x L = 262,144 products a channel is itself up to ~1e-6 off it, so
+#: the kernel is held no further from PyTorch's sum than PyTorch's own error
+#: and this
+PRELU_DW_RTOL = 1e-6
+#: 17b: (label, (B, T*C, L), memory order of the dims, terms): a normal-form
+#: block's end at T 256 with three PReLUs, with the identity residual between
+#: two, one PReLU there, and the one-channel excitation's second PReLU of
+#: the normal encoder's first block, laid out (C, B, L)
+PRELU_TIMED = (
+    ("3 terms", (1024, 1024, 256), (0, 1, 2), (True, True, True)),
+    ("identity", (1024, 1024, 256), (0, 1, 2), (True, False, True)),
+    ("1 term", (1024, 1024, 256), (0, 1, 2), (True,)),
+    ("1 term, (C, B, L)", (1024, 256, 128), (1, 0, 2), (True,)),
+)
+#: 17c: the forms whose traced T 8 epoch is held to the counters
+PRELU_TRACE_FORMS = ("compact", "normal")
+PRELU_COUNTERS = {k: LAUNCH_COUNTERS[f"prelu_sum_{k}"] for k in ("fwd", "bwd", "tail")}
+PRELU_KERNELS = {"fwd": "prelu_sum_fwd_kernel", "bwd": "prelu_sum_bwd_kernel",
+                 "sum": "prelu_slope_sum_kernel"}
+
+
+def prelu_call_key(ys, ws):
+    """A P1 call's shape, memory order of its dims and term pattern."""
+    order = tuple(sorted(range(3), key=lambda d: -ys[0].stride(d)))
+    return tuple(ys[0].shape), order, tuple(w is not None for w in ws)
+
+
+def held_prelu_forward(torch, pc, ys, ws, out=None):
+    """P1's forward (``out``, or a fresh call) against the plain version:
+    bit for bit, in the layout of the terms."""
+    if out is None:
+        out = pc.forward(ys, ws)
+    want = pc.forward_plain(ys, ws)
+    assert torch.equal(out, want), prelu_call_key(ys, ws)
+    assert pc.in_layout(out, ys[0]) is out, (out.stride(), ys[0].stride())
+    return out
+
+
+def held_prelu_backward(torch, pc, dout, ys, ws, got=None, kernel=None):
+    """P1's backward (``got``, or a fresh call) against the plain version:
+    each activated term's dy bit for bit; its slope gradient within
+    PRELU_DW_RTOL of the exact sum of the plain version's products, no
+    further from the plain (PyTorch float32) sum than that sum's own error
+    and PRELU_DW_RTOL (all over the exact sum's largest magnitude), and
+    bit-identical over a second call (of ``kernel``, default
+    ``pc.backward``).  Returns the largest of each of the three relative
+    differences: {"exact", "torch_own", "torch"}."""
+    kernel = pc.backward if kernel is None else kernel
+    dys, dws = kernel(dout, ys, ws) if got is None else got
+    pdy, pdw = pc.backward_plain(dout, ys, ws)
+    again = kernel(dout, ys, ws)[1]
+    worst = dict.fromkeys(("exact", "torch_own", "torch"), 0.0)
+    for k, w in enumerate(ws):
+        if w is None:
+            assert dys[k] is None and dws[k] is None
+            continue
+        key = (k, prelu_call_key(ys, ws))
+        assert torch.equal(dys[k], pdy[k]), key
+        exact = torch.where(ys[k] > 0, 0, ys[k] * dout).double().sum((0, 2))
+        scale = exact.abs().max().clamp_min(1e-300)
+        errs = {"exact": dws[k].double() - exact, "torch_own": pdw[k].double() - exact,
+                "torch": dws[k].double() - pdw[k].double()}
+        errs = {n: (e.abs().max() / scale).item() for n, e in errs.items()}
+        assert errs["exact"] <= PRELU_DW_RTOL, (key, errs)
+        assert errs["torch"] <= errs["torch_own"] + PRELU_DW_RTOL, (key, errs)
+        assert torch.equal(dws[k], again[k]), key
+        worst = {n: max(worst[n], errs[n]) for n in worst}
+    return worst
+
+
+def prelu_operands(torch, shape, order, pattern, seed):
+    """Random terms, slopes and an output gradient of one P1 call: (B, C,
+    L) tensors laid out with their dims in ``order``; slopes of either sign
+    (training moves them off 0.01)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    physical = tuple(shape[d] for d in order)
+    back = tuple(order.index(d) for d in range(3))
+
+    def term():
+        return torch.randn(physical, device="cuda", generator=gen).permute(back)
+    ys = [term() for _ in pattern]
+    ws = [torch.randn(shape[1], device="cuda", generator=gen) * 0.25 if a else None
+          for a in pattern]
+    return ys, ws, term()
+
+
+def check_prelu(torch, pc, cfg_path, splits, card):
+    """Phase 17a: every P1 call of one T 8 training epoch of each of
+    PRELU_FORMS held to the plain version as called (forward and dy bit for
+    bit, slope gradients as :func:`held_prelu_backward`); then each distinct
+    call at the cells' T 256 (its channels 32 times as many) on random
+    operands.  Returns the slope gradients' largest relative differences."""
+    from rankaae_tpu_torch.models import primitives as P
+    from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+    from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
+
+    worst, keys = dict.fromkeys(("exact", "torch_own", "torch"), 0.0), {}
+    fwd, bwd = pc.forward, pc.backward
+
+    def widen(errs):
+        for n in worst:
+            worst[n] = max(worst[n], errs[n])
+    for form, cnn in PRELU_FORMS:
+        params = Parameters.from_yaml(cfg_path)
+        params.update({"ae_form": form, "use_cnn_discriminator": cnn})
+        cfg = TrainConfig.from_parameters(params)
+        P.set_matmul_precision(cfg.matmul_precision)
+        data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
+        core = RankAAETrainer(cfg, n_train=len(splits[0]), n_val=len(splits[2]),
+                              trials=PRELU_EPOCH_T, device="cuda")
+        calls = {"fwd": 0, "bwd": 0}
+
+        def held_fwd(ys, ws):
+            out = held_prelu_forward(torch, pc, ys, ws, fwd(ys, ws))
+            calls["fwd"] += 1
+            keys.setdefault(prelu_call_key(ys, ws), False)
+            return out
+
+        def held_bwd(dout, ys, ws):
+            got = bwd(dout, ys, ws)
+            widen(held_prelu_backward(torch, pc, dout, ys, ws, got, bwd))
+            calls["bwd"] += 1
+            keys[prelu_call_key([dout], ws)] = True
+            return got
+
+        pc.forward, pc.backward = held_fwd, held_bwd
+        try:
+            state, _ = core.epoch_step(core.init_state(0), 0, data)
+            torch.cuda.synchronize()
+        finally:
+            pc.forward, pc.backward = fwd, bwd
+        assert calls["fwd"] > 0 and calls["bwd"] > 0, (form, calls)
+        print(f"17a {form}{' + CNN' if cnn else ''}, T {PRELU_EPOCH_T}: all {calls['fwd']} P1 "
+              f"forward and {calls['bwd']} backward calls of a training epoch equal to the "
+              f"plain version as called [{card}]")
+        del core, state, data
+        torch.cuda.empty_cache()
+    scale = PRELU_CELL_T // PRELU_EPOCH_T
+    for i, ((b, c, length), order, pattern) in enumerate(sorted(keys)):
+        ys, ws, dout = prelu_operands(torch, (b, c * scale, length), order, pattern, i)
+        held_prelu_forward(torch, pc, ys, ws)
+        if keys[((b, c, length), order, pattern)]:
+            widen(held_prelu_backward(torch, pc, dout, ys, ws))
+        del ys, ws, dout
+        torch.cuda.empty_cache()
+    print(f"17a: the {len(keys)} distinct P1 calls (shape, memory order, terms) of those "
+          f"epochs at T {PRELU_CELL_T} ({sum(keys.values())} with a backward): forward and "
+          f"dy bit for bit; slope gradients at most {worst['exact']:.3g} off the exact sum "
+          f"of the products (limit {PRELU_DW_RTOL:g}) and {worst['torch']:.3g} off "
+          f"PyTorch's float32 sum, itself {worst['torch_own']:.3g} off (over the largest "
+          f"magnitude); bit-identical over two calls [{card}]")
+    return worst
+
+
+def prelu_library(torch, ys, ws):
+    """The parent's chain: ``F.prelu`` of each activated term, the terms
+    added in order (a yardstick the port never calls on the card)."""
+    import torch.nn.functional as F
+
+    out = None
+    for y, w in zip(ys, ws):
+        v = y if w is None else F.prelu(y, w)
+        out = v if out is None else out + v
+    return out
+
+
+def time_prelu(torch, pc, card):
+    """Phase 17b: P1 at each case of PRELU_TIMED, forward and backward:
+    ``ms`` CUDA events around 50
+    wrapper calls, ``device_ms`` 20 calls in one CUDA graph, ``plain_ms``,
+    ``bound_ms`` the bytes over 3.35 TB/s ((terms + 1) N 4 forward, (1 +
+    2 activated) N 4 backward), ``library_ms`` the parent's ``F.prelu`` and
+    adds, forward and their autograd backward (slope sums included)."""
+    rows = {}
+    for label, shape, order, pattern in PRELU_TIMED:
+        ys, ws, dout = prelu_operands(torch, shape, order, pattern, 0)
+        n = dout.numel()
+        leaves = [y.clone().requires_grad_() for y in ys]
+        slopes = [w.clone().requires_grad_() for w in ws if w is not None]
+        it = iter(slopes)
+        chain = prelu_library(torch, leaves, [next(it) if a else None for a in pattern])
+        act = sum(pattern)
+        sides = {
+            "fwd": (lambda: pc.forward(ys, ws), lambda: pc.forward_plain(ys, ws),
+                    lambda: prelu_library(torch, ys, ws), (len(pattern) + 1) * n * 4),
+            "bwd": (lambda: pc.backward(dout, ys, ws), lambda: pc.backward_plain(dout, ys, ws),
+                    lambda: torch.autograd.grad(chain, leaves + slopes, dout,
+                                                retain_graph=True), (1 + 2 * act) * n * 4)}
+        rows[label] = {}
+        for side, (kern, plain, lib, nbytes) in sides.items():
+            row = {"ms": time_ms(torch, kern, reps=50, warmup=5),
+                   "device_ms": graph_ms(torch, kern, reps=20),
+                   "plain_ms": time_ms(torch, plain, reps=5, warmup=2),
+                   "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "library_ms": time_ms(torch, lib, reps=10, warmup=2)}
+            row["roofline"] = row["bound_ms"] / row["device_ms"]
+            rows[label][side] = row
+        del ys, ws, dout, leaves, slopes, chain, sides
+        torch.cuda.empty_cache()
+        print(f"17b {label} at (B, T*C, L) {shape}: " + json.dumps(rows[label]) + f" [{card}]")
+    return rows
+
+
+def prelu_epoch_trace(torch, cfg_path, splits, trials=PRELU_EPOCH_T):
+    """One traced training epoch of each of PRELU_TRACE_FORMS at T
+    ``trials`` (after a warm-up epoch): {form: the ``prelu.*`` counters'
+    calls, the block forwards that run module by module (hooks on the
+    stacked blocks; an eval-mode K3 block is not one), P1's kernels in the
+    device trace and their device ms, PyTorch's PReLU kernels in the trace,
+    its device ms in all}."""
+    from rankaae_tpu_torch.models import primitives as P
+    from rankaae_tpu_torch.models.blocks import TrialDecodingBlock, TrialEncodingBlock
+    from rankaae_tpu_torch.train.trainer import RankAAETrainer, TrialData
+    from rankaae_tpu_torch.utils import tracing
+    from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
+
+    out = {}
+    for form in PRELU_TRACE_FORMS:
+        params = Parameters.from_yaml(cfg_path)
+        params.update({"ae_form": form})
+        cfg = TrainConfig.from_parameters(params)
+        P.set_matmul_precision(cfg.matmul_precision)
+        data = TrialData(*(torch.from_numpy(a).to("cuda") for a in splits))
+        core = RankAAETrainer(cfg, n_train=len(splits[0]), n_val=len(splits[2]),
+                              trials=trials, device="cuda")
+        state, _ = core.epoch_step(core.init_state(0), 0, data)
+        torch.cuda.synchronize()
+        blocks = {"train": 0, "eval": 0}
+
+        def hook(m, inp, y):
+            if not (getattr(m, "fused", False) and not m.training):
+                blocks["train" if m.training else "eval"] += 1
+
+        handles = [m.register_forward_hook(hook) for model in core.models.values()
+                   for m in model.modules()
+                   if isinstance(m, (TrialEncodingBlock, TrialDecodingBlock))]
+        before = {k: tracing.counter(v) for k, v in PRELU_COUNTERS.items()}
+        try:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                state, _ = core.epoch_step(state, 1, data)
+                torch.cuda.synchronize()
+        finally:
+            for h in handles:
+                h.remove()
+        traced = dict.fromkeys(PRELU_KERNELS, 0)
+        traced_ms, library, all_ms = 0.0, {}, 0.0
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = (evt.time_range.end - evt.time_range.start) / 1e3
+            all_ms += ms
+            mine = [k for k, name in PRELU_KERNELS.items() if name in evt.name]
+            for k in mine:
+                traced[k] += 1
+                traced_ms += ms
+            if not mine and "prelu" in evt.name.lower():
+                library[evt.name[:80]] = library.get(evt.name[:80], 0) + 1
+        got = {k: int(tracing.counter(v) - before[k]) for k, v in PRELU_COUNTERS.items()}
+        out[form] = {"launches": got, "blocks": blocks, "traced": traced,
+                     "traced_ms": traced_ms, "library": library, "device_ms": all_ms}
+        del core, state, data
+        torch.cuda.empty_cache()
+    return out
+
+
+def prelu_epoch_main(argv) -> int:
+    """Phase 17c's traced epochs in a process of their own (``chip_smoke.py
+    --prelu-epoch DATA OUT``): :func:`prelu_epoch_trace` on the splits in
+    DATA, its result into OUT as JSON."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from rankaae_tpu_torch.ops import _nvcc
+    from rankaae_tpu_torch.ops import conv1d_cuda as cc
+    from rankaae_tpu_torch.ops import draws_cuda as dc
+    from rankaae_tpu_torch.ops import prelu_cuda as pc
+
+    data_npz, out = argv
+    _nvcc.compile_all([cc.SOURCE, dc.SOURCE, pc.SOURCE])
+    with np.load(data_npz) as z:
+        splits = tuple(z[k] for k in ("a", "b", "c", "d"))
+    res = prelu_epoch_trace(torch, os.path.join(HERE, "example", "fix_config.yaml"), splits)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def prelu_epoch_launches(np, splits, card):
+    """Phase 17c: :func:`prelu_epoch_trace` in a fresh process: the P1
+    kernels of the device trace equal to the ``prelu.*`` counters (two
+    launches a backward call), ``prelu.tail_launches`` equal to the
+    block forwards that run module by module, and no PyTorch PReLU kernel
+    in the epoch."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prelu_epoch_") as tmp:
+        data_npz, out = os.path.join(tmp, "data.npz"), os.path.join(tmp, "prelu_epoch.json")
+        np.savez(data_npz, a=splits[0], b=splits[1], c=splits[2], d=splits[3])
+        res = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                              "--prelu-epoch", data_npz, out], capture_output=True, text=True,
+                             timeout=900, cwd=HERE)
+        assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+        with open(out) as f:
+            runs = json.load(f)
+    for form, r in runs.items():
+        got, traced, blocks = r["launches"], r["traced"], r["blocks"]
+        assert got["tail"] > 0 and got["tail"] == blocks["train"] + blocks["eval"], (form, r)
+        assert traced["fwd"] == got["fwd"] and traced["bwd"] == traced["sum"] \
+            and traced["bwd"] + traced["sum"] == got["bwd"], (form, r)
+        assert not r["library"], (form, r["library"])
+        print(f"17c {form}, T {PRELU_EPOCH_T}, a process of its own: one traced epoch's "
+              f"prelu counters {json.dumps(got)} = the P1 kernels the device trace shows "
+              f"{json.dumps(traced)}; tail launches = the block forwards run module by module "
+              f"({blocks['train']} in train mode, {blocks['eval']} in eval mode); no PyTorch "
+              f"PReLU kernel; P1's device ms {r['traced_ms']:.1f} of {r['device_ms']:.1f} ms of "
+              f"device operations [{card}]")
+    return runs
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3042,6 +3401,7 @@ def main() -> int:
     from rankaae_tpu_torch.ops import fused_block_cuda as fb
     from rankaae_tpu_torch.ops import kendall as tk
     from rankaae_tpu_torch.ops import kendall_cuda as kc
+    from rankaae_tpu_torch.ops import prelu_cuda as pc
     from rankaae_tpu_torch.train.facade import Trainer
     from rankaae_tpu_torch.utils import tracing
     from rankaae_tpu_torch.utils.config import Parameters, TrainConfig
@@ -3052,23 +3412,23 @@ def main() -> int:
 
     # ---- 1. build ----------------------------------------------------- #
     t_start = t0 = time.perf_counter()
-    _nvcc.compile_all([kc.SOURCE, fb.SOURCE, cc.SOURCE, dc.SOURCE])
-    kc.build()
-    fb.build()
-    cc.build()
-    dc.build()
-    print(f"build: {kc.SOURCE.name}, {fb.SOURCE.name}, {cc.SOURCE.name}, {dc.SOURCE.name} in "
-          f"parallel in {time.perf_counter() - t0:.2f} s")
-    for source in (kc.SOURCE, fb.SOURCE, cc.SOURCE, dc.SOURCE):   # kept beside the library
+    sources = (kc.SOURCE, fb.SOURCE, cc.SOURCE, dc.SOURCE, pc.SOURCE)
+    _nvcc.compile_all(sources)
+    for lib in (kc, fb, cc, dc, pc):
+        lib.build()
+    print(f"build: {', '.join(s.name for s in sources)} in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    summed = (cc.SOURCE, pc.SOURCE)               # many kernels: their count and most registers
+    for source in sources:                        # the ptxas report, kept beside the library
         regs = []
         for line in _nvcc.build_log(source).splitlines():
-            if source != cc.SOURCE and ("entry function" in line or "Used" in line
-                                        or "spill" in line):
+            if source not in summed and ("entry function" in line or "Used" in line
+                                         or "spill" in line):
                 print(f"  ptxas {source.name}: {line.strip()}")
             regs += [int(r) for r in re.findall(r"Used (\d+) registers", line)]
             if "spill" in line:                   # no kernel may spill registers
                 assert set(re.findall(r"(\d+) bytes spill", line)) == {"0"}, (source.name, line)
-        if source == cc.SOURCE:
+        if source in summed:
             print(f"  ptxas {source.name}: {len(regs)} kernels, at most {max(regs)} registers, "
                   f"no spills")
 
@@ -3149,7 +3509,8 @@ def main() -> int:
     # ---- 7. training the conv forms ------------------------------------- #
     set_matmul_precision(cfg.matmul_precision)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_conv_") as tmp:
-        conv_launches = train_conv(torch, np, kc, fb, cfg_path, tmp, card, n_batch)
+        conv_launches, p1_launches = train_conv(torch, np, kc, fb, cfg_path, tmp, card,
+                                                n_batch)
     t0 = time.perf_counter()
     ccfg = cfg.replace(ae_form="normal", use_cnn_discriminator=True, dropout_rate=0.0,
                        dis_dropout_rate=0.0, dis_noise=0.0)
@@ -3364,6 +3725,15 @@ def main() -> int:
     print(f"16: {time.perf_counter() - t0:.1f} s; phases 1-16: "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # ---- 17. the channel PReLUs and branch sums P1 ------------------------- #
+    t0 = time.perf_counter()
+    prelu_err = check_prelu(torch, pc, cfg_path, splits, card)
+    set_matmul_precision(cfg.matmul_precision)
+    prelu_times = time_prelu(torch, pc, card)
+    prelu_epoch_launches(np, splits, card)
+    print(f"17: {time.perf_counter() - t0:.1f} s; phases 1-17: "
+          f"{time.perf_counter() - t_start:.1f} s")
+
     for name in ("kendall_pair_sums", "kendall_grad_rows"):
         launches[name] += conv_launches[name] + trial_launches[name] + recal_launches[name] \
             + sum(run[1][name] for run in resume_runs.values()) + normal_launches[name] \
@@ -3413,6 +3783,15 @@ def main() -> int:
         "replaces": None, "launches": draw_launches_main, "max_ulps_normal": draw_ulps,
         "ms": d1["ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
         "bound_by": "bytes", "library_ms": d1["library_ms"], "device_ms": d1["device_ms"]})
+    for side in ("fwd", "bwd"):
+        p1 = prelu_times[PRELU_TIMED[0][0]][side]
+        rows.append({
+            "name": f"prelu_sum_{side}", "route": "cuda",
+            "source": "rankaae_tpu_torch/csrc/prelu_sum.cu", "replaces": None,
+            "launches": {path: int(n[f"prelu_sum_{side}"]) for path, n in p1_launches.items()},
+            "slope_rel_err": prelu_err,
+            "ms": p1["ms"], "plain_ms": p1["plain_ms"], "bound_ms": p1["bound_ms"],
+            "bound_by": "bytes", "library_ms": p1["library_ms"], "device_ms": p1["device_ms"]})
     print("library_ms: null — no single PyTorch call computes the Kendall pair sums "
           "or their gradient rows, nor the fused EncodingBlock (two convs, BNs, PReLUs, "
           "residual and excitation MLP); K3's row is at the serving shape C 4, B 1024; "
@@ -3423,7 +3802,12 @@ def main() -> int:
           "over 15a's cases at B 1024, T 32, library_ms cuDNN's, launches every call of "
           "phases 1-14 in this process; D1 (no TPU kernel: the JAX package draws with "
           "jax.random) at a T 256 (B 1024, 4, 256) keep-mask, library_ms one torch.rand over "
-          "that shape from one generator, launches every call of phases 1-15")
+          "that shape from one generator, launches every call of phases 1-15; P1 (no TPU "
+          "kernel: the JAX package leaves PReLU to XLA) forward and backward at three terms "
+          "(B, T*C, L) = (1024, 1024, 256), library_ms F.prelu and the adds and their "
+          "autograd backward, launches those of phase 7's training by path (normal: 7a's "
+          f"{EPOCHS} epochs; compact: 7b's {len(BRANCH_RUNS)} runs), the backward's two a "
+          "call (the partials and their sum)")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3441,4 +3825,6 @@ if __name__ == "__main__":
         sys.exit(conv_epoch_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--draw-epoch"]:           # phase 16c's traced epochs
         sys.exit(draw_epoch_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--prelu-epoch"]:          # phase 17c's traced epochs
+        sys.exit(prelu_epoch_main(sys.argv[2:]))
     sys.exit(main())

@@ -22,6 +22,14 @@ kernel work for later, ROADMAP §2); the result differs from the JAX
 package's bfloat16 block, which rounds at each primitive, by
 bfloat16-sized amounts.
 
+On the card in float32 a stacked block that runs its modules one by one
+ends in one call of the kernel P1 (``ops/prelu_cuda.py``): the PReLUs of
+its main branch, its shortcut and its excitation's last layer, and the sum
+of the three, where the modules launch three PReLUs and two adds (a
+stride-1 block without a shortcut adds its residual un-activated, an
+identity term).  The output is bit for bit the modules'.  The CPU, the
+bfloat16 branch and the single-trial blocks run the modules.
+
 ``remat`` (the JAX package's ``nn.remat`` over the conv blocks,
 ``rankaae_tpu/models/encoders.py:66-67``, ``decoders.py:80-83``): the
 encoders and decoders run each block through :func:`run_block`, which in
@@ -46,7 +54,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from rankaae_tpu_torch.models.primitives import TrialModule, layers_of
-from rankaae_tpu_torch.ops import fused_block_cuda
+from rankaae_tpu_torch.ops import fused_block_cuda, prelu_cuda
 
 
 class EncodingBlock(nn.Module):
@@ -110,10 +118,13 @@ class EncodingBlock(nn.Module):
         out = self.bn1(x) if self.has_bn1 else x
         residual = out
         out = self.relu1(self.conv1(out))
-        out = self.relu2(self.conv2(self.bn2(out)))
-        res = self.relu_short(self.conv_short(residual)) if self.has_short else residual
+        out = self.conv2(self.bn2(out))
+        p1 = _takes_p1(self, out)
+        out = _term(p1, self.relu2, out)
+        res = _term(p1, self.relu_short, self.conv_short(residual)) if self.has_short \
+            else _term(p1, None, residual)
         excit = self.dropout_1(residual, sampler) if self.has_dropout else residual
-        return out + res + _excitation(self, excit)
+        return _branch_sum(p1, out, res, _excitation(self, excit, p1))
 
 
 class DecodingBlock(nn.Module):
@@ -159,19 +170,45 @@ class DecodingBlock(nn.Module):
         out = self.bn1(x) if self.has_bn1 else x
         residual = out
         out = self.relu1(self.conv1(out))
-        out = self.relu2(self.conv2(self.bn2(out)))
-        res = self.relu_short(self.conv_short(residual))
+        out = self.conv2(self.bn2(out))
+        p1 = _takes_p1(self, out)
+        out = _term(p1, self.relu2, out)
+        res = _term(p1, self.relu_short, self.conv_short(residual))
         excit = self.dropout_1(residual, sampler) if self.has_dropout else residual
-        return out + res + _excitation(self, excit)
+        return _branch_sum(p1, out, res, _excitation(self, excit, p1))
 
 
-def _excitation(block, excit):
+def _excitation(block, excit, p1: bool):
     """The excitation branch after its dropout: Linear -> PReLU -> Linear ->
-    PReLU [-> BN -> 1x1 grouped Conv -> PReLU when the channels change]."""
-    excit = block.relu_excit_2(block.fc2(block.relu_excit_1(block.fc1(excit))))
-    if block.has_excit_conv:
-        excit = block.relu_excit_3(block.conv_excit(block.bn_excit(excit)))
-    return excit
+    PReLU [-> BN -> 1x1 grouped Conv -> PReLU when the channels change]; its
+    last PReLU as a P1 term where ``p1`` (:func:`_term`)."""
+    excit = block.fc2(block.relu_excit_1(block.fc1(excit)))
+    if not block.has_excit_conv:
+        return _term(p1, block.relu_excit_2, excit)
+    excit = block.conv_excit(block.bn_excit(block.relu_excit_2(excit)))
+    return _term(p1, block.relu_excit_3, excit)
+
+
+def _takes_p1(block, y) -> bool:
+    """Whether ``block``'s branches end in one P1 call: a trial-stacked block
+    whose main branch ``y`` is a CUDA float32 tensor."""
+    return isinstance(block, TrialModule) and prelu_cuda.takes(y)
+
+
+def _term(p1: bool, prelu, y):
+    """Branch ``y`` activated by ``prelu`` (None: the identity).  Where
+    ``p1`` the term (y, its T*C slopes or None) that :func:`_branch_sum`
+    activates, else the activated tensor, computed here so the CPU's order
+    of operations, and so its numbers, are those of the modules run one by
+    one."""
+    if p1:
+        return y, None if prelu is None else prelu.weight.view(-1)
+    return y if prelu is None else prelu(y)
+
+
+def _branch_sum(p1: bool, out, res, excit):
+    """The block's output ``out + res + excit``: one P1 call where ``p1``."""
+    return prelu_cuda.prelu_sum([out, res, excit]) if p1 else out + res + excit
 
 
 class TrialEncodingBlock(TrialModule, EncodingBlock):

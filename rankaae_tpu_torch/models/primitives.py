@@ -23,7 +23,8 @@ every statistic is per trial).  Over channels they take (B, T*C, L) inputs,
 trial t's channels at [t*C, (t+1)*C): ``TrialConv1d`` and
 ``TrialConvTranspose1d`` (weight (T, ...) of the single layout, one grouped
 convolution with T times the groups: in float32 on the card the kernels C1–C3
-of ``ops/conv1d_cuda.py``, on the CPU ``F.conv1d``), ``TrialChannelPReLU``,
+of ``ops/conv1d_cuda.py``, on the CPU ``F.conv1d``), ``TrialChannelPReLU``
+(in float32 on the card the kernel P1 of ``ops/prelu_cuda.py``),
 ``TrialChannelBatchNorm`` (one ``F.batch_norm`` over the T*C channels),
 ``TrialLengthLinear`` (a ``TrialLinear`` over the length axis, through a
 (T, B*C, L) copy) and ``TrialChannelDropout``.  ``Dropout`` asks its sampler
@@ -327,10 +328,15 @@ class TrialConvTranspose1d(nn.Module):
 
 
 class TrialChannelPReLU(TrialPReLU):
-    """:class:`TrialPReLU` over the channels of (B, T*C, L): one ``F.prelu``
-    with the T*C weights, as ``nn.PReLU`` runs it."""
+    """:class:`TrialPReLU` over the channels of (B, T*C, L) with the T*C
+    weights: on a CUDA float32 tensor the kernel P1 with one term
+    (``ops/prelu_cuda.py``), else one ``F.prelu``, as ``nn.PReLU`` runs it.
+    A block's last PReLUs go into P1 with the sum of its branches
+    (``models/blocks.py``)."""
 
     def forward(self, x):
+        if prelu_cuda.takes(x):
+            return prelu_cuda.prelu_sum([(x, self.weight.view(-1))])
         return F.prelu(x, self.weight.view(-1).to(x.dtype))
 
 
@@ -509,4 +515,4 @@ def gaussian_smooth_1d(x: torch.Tensor, kernel_size: int = 17, sigma: float = 3.
 
 # last: importing the ops package imports ops/losses.py, which takes
 # gaussian_smooth_1d from this module
-from rankaae_tpu_torch.ops import conv1d_cuda  # noqa: E402
+from rankaae_tpu_torch.ops import conv1d_cuda, prelu_cuda  # noqa: E402

@@ -276,11 +276,13 @@ def run_ours(cfg_dict: Dict[str, Any], csv_path: str, n_seeds: int, device,
 
 def launch_counts() -> Dict[str, int]:
     """The port's kernel launches so far in this process: K1 and K2 (the
-    Kendall pair sums and gradient rows) and K3 (the fused block)."""
+    Kendall pair sums and gradient rows), K3 (the fused block) and P1's
+    forward calls (the channel PReLUs and branch sums)."""
     from rankaae_tpu_torch.utils import tracing
 
     return {"K1": tracing.counter("kendall.fwd_launches"),
-            "K2": tracing.counter("kendall.bwd_launches"), "K3": tracing.counter("k3.launches")}
+            "K2": tracing.counter("kendall.bwd_launches"), "K3": tracing.counter("k3.launches"),
+            "P1": tracing.counter("prelu.fwd_launches")}
 
 
 def _rounded(values) -> List[float]:
